@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-It drives the port's two paths as a user would call them and holds every
+It drives the port's paths as a user would call them and holds every
 kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit; TF32 off.
@@ -17,11 +17,23 @@ kernel against its plain PyTorch version:
    f32 on the card against f32 on the CPU for one 512x512 image, then the
    bf16 ``UNetWSServer`` (``predict``, ``predict_many``,
    ``measure_latency``).
-5. times: B2 and its plain version at B=128 and B=8, 512x512, with the
+5. kernel B1 (the reflect-padded 3x3 conv, CUDA C++): its nvcc build, then
+   B1 against its plain version at the 10 ``unet_2`` layer shapes at
+   512x512 (B=2), f32 and bf16, ReLU on and off, at ragged shapes, and at
+   one input of more than 2^31 elements.
+6. the fast-conv U-Net path: ``unet_2`` with ``fast_conv=True`` (every 3x3
+   conv through B1) against ``fast_conv=False`` in f32, with B1's launch
+   count read around it (10 a forward); the bf16 ``UNetWSServer`` on it;
+   the saliency gradient through B1 against the cuDNN route.
+7. times: B2 and its plain version at B=128 and B=8, 512x512, with the
    bound (device time from CUDA-graph replay, and B2's time per call when
-   launched from Python); U-Net batch throughput at B=32 in bf16 and f32.
-6. where the time goes: torch.profiler over the U-Net batch step, the
-   serving step and the attack sweep (device busy share, top kernels).
+   launched from Python); B1 per layer shape at B=32, 512x512, bf16 and
+   f32, beside its bound, its plain version and cuDNN's reflect-pad conv;
+   U-Net batch throughput at B=32 in bf16 and f32 for ``fast_conv`` in
+   {False, "borderfix", True}.
+8. where the time goes: torch.profiler over the U-Net batch step (each
+   ``fast_conv`` route), the serving step and the attack sweep (device
+   busy share, top kernels).
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -37,6 +49,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 FILTERS = ["KB", "AVG", "AVG9", "1"]
 WEIGHTS = [0, 1, -1]
@@ -45,7 +58,19 @@ WEIGHTS = [0, 1, -1]
 RTOL, ATOL = 1e-4, 1e-6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same source
+BF16_OPS_PER_S = 989e12     # bf16 tensor cores, dense, same source
 ALPHA = 0.4
+FAST_CONV = [False, "borderfix", True]
+# kernels that pad or change the layout around the convs (reflect pad,
+# cuDNN's NCHW<->NHWC transposes)
+LAYOUT_KERNELS = ("reflection_pad", "nchwToNhwc", "nhwcToNchw")
+# the 3x3 reflect convs of unet_2 at 512x512, in forward order:
+# (name, H = W, C_in, C_out)
+UNET2_CONVS = [("e1.conv1", 512, 1, 64), ("e1.conv2", 512, 64, 64),
+               ("e2.conv1", 256, 64, 128), ("e2.conv2", 256, 128, 128),
+               ("e3.conv1", 128, 128, 256), ("e3.conv2", 128, 256, 256),
+               ("d2.conv1", 256, 256, 128), ("d2.conv2", 256, 128, 128),
+               ("d1.conv1", 512, 128, 64), ("d1.conv2", 512, 64, 64)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -57,6 +82,33 @@ def phase(n: int, title: str, t0: float) -> float:
     print(f"[phase {n}] {title}: {time.perf_counter() - t0:.1f} s",
           flush=True)
     return time.perf_counter()
+
+
+def b1_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """Max |got - want| and whether B1 is within its tolerance of its
+    plain version run in f32 on the same inputs.  f32 (TF32 off): rtol
+    1e-4, atol 1e-4, sums of up to 9*C = 2,304 terms in another order.
+    bf16: one bf16 ulp of the output (the kernel rounds its f32 sum once)
+    plus atol 1e-4 for values near 0."""
+    err = (got.float() - want).abs()
+    if got.dtype == torch.bfloat16:
+        tol = torch.ldexp(torch.ones_like(want),
+                          torch.frexp(want).exponent - 8)
+    else:
+        tol = 1e-4 * want.abs()
+    return float(err.max()), bool((err <= tol + 1e-4).all())
+
+
+def conv_inputs(shape, cout, dtype, seed):
+    """Seeded NHWC x, HWIO w (scaled so outputs are O(1)) and b on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=g, dtype=dtype)
+    w = torch.randn((3, 3, C, cout), device="cuda", generator=g) / (
+        3 * C ** 0.5)
+    b = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    return x, w.to(dtype), b.to(dtype)
 
 
 def smooth_covers(n: int, size: int, seed: int) -> np.ndarray:
@@ -171,6 +223,8 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
     busy = sum(by_name.values())
     return {"wall_ms": wall_ms, "busy_ms": busy,
             "busy_share": busy / wall_ms if by_name else None,
+            "layout_ms": {pat: sum(ms for n, ms in by_name.items()
+                                   if pat in n) for pat in LAYOUT_KERNELS},
             "top": [[n[:70], ms, ms / busy]
                     for n, ms in sorted(by_name.items(),
                                         key=lambda kv: -kv[1])[:top]]}
@@ -181,8 +235,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from wsunet_tpu_torch._device import disable_tf32
+    from wsunet_tpu_torch.analyses import unet_saliency
     from wsunet_tpu_torch.models import get_model, init_unet
-    from wsunet_tpu_torch.ops import NAMED_FILTERS_2D, fused_ws, ws_attack
+    from wsunet_tpu_torch.ops import (NAMED_FILTERS_2D, _cuda_build,
+                                      fused_reflect_conv, fused_ws,
+                                      ws_attack)
     from wsunet_tpu_torch.serve import UNetWSServer, measure_latency
     from wsunet_tpu_torch.ws import (attack_sweep, parse_filter_model,
                                      predict_batch)
@@ -279,6 +336,7 @@ def main() -> int:
     b_cpu, l_cpu = predict_batch(model, img, device="cpu")
     model_gpu = copy.deepcopy(model).to(dev)
     fused_ws.reset_launches()
+    fused_reflect_conv.reset_launches()
     b_gpu, l_gpu = predict_batch(model_gpu, img)
     b_gpu, l_gpu = float(b_gpu[0]), float(l_gpu[0])
     b_cpu, l_cpu = float(b_cpu[0]), float(l_cpu[0])
@@ -310,9 +368,129 @@ def main() -> int:
     print(f"U-Net path: B2 launches {unet_launches} (it has no kernel of "
           "its own: convolutions are cuDNN's, as XLA's in the JAX package)")
     check(unet_launches == 0, "B2 ran on the U-Net path")
+    check(fused_reflect_conv.launches == 0,
+          "B1 ran on the fast_conv=False U-Net path")
     t = phase(4, "U-Net serving path", t)
 
-    # ---- 5. times
+    # ---- 5. B1: build, then against its plain version on the card
+    t_build = time.perf_counter()
+    _cuda_build.load("reflect_conv3x3")
+    build = _cuda_build.build_info("reflect_conv3x3")
+    print(f"B1 build (nvcc, sm_90a): {build['seconds']:.1f} s "
+          f"(load {time.perf_counter() - t_build:.1f} s)")
+    for line in build["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas: " + line.strip())
+    b1_err_max = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+
+    def b1_case(label, x, w, b, relu, want_of=None):
+        nonlocal n_cases
+        got = fused_reflect_conv.conv3x3_reflect_fused(x, w, b, relu=relu)
+        torch.cuda.synchronize()
+        if want_of is None:
+            want = fused_reflect_conv.conv3x3_reflect_fused_plain(
+                x.float(), w.float(), b.float(), relu)
+        else:
+            got, want = want_of(got)
+        torch.cuda.synchronize()
+        err, ok = b1_err(got, want)
+        b1_err_max[x.dtype] = max(b1_err_max[x.dtype], err)
+        n_cases += 1
+        check(ok, f"B1 {label} {str(x.dtype)[6:]} relu={relu}: "
+                  f"max |err| {err}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for layer, S, C, Co in UNET2_CONVS:
+            x, w, b = conv_inputs((2, S, S, C), Co, dtype, seed=S + C + Co)
+            for relu in (False, True):
+                b1_case(f"{layer} 2x{S}x{S}x{C}->{Co}", x, w, b, relu)
+        for shape, Co in [((3, 37, 29, 5), 7), ((1, 2, 2, 1), 3),
+                          ((2, 9, 130, 64), 64), ((1, 20, 20, 9), 130)]:
+            x, w, b = conv_inputs(shape, Co, dtype, seed=sum(shape))
+            for relu in (False, True):
+                b1_case(f"{shape}->{Co}", x, w, b, relu)
+        del x, w, b
+    # 64-bit offsets: 66x512x512x128 bf16 is 2.2e9 elements; the last
+    # image lies beyond 2^31 elements and is compared alone
+    big = (66, 512, 512, 128)
+    x, w, b = conv_inputs(big, 64, torch.bfloat16, seed=11)
+    b1_case(f"{big}->64 (last image)", x, w, b, True, want_of=lambda got: (
+        got[-1:], fused_reflect_conv.conv3x3_reflect_fused_plain(
+            x[-1:].float(), w.float(), b.float(), True)))
+    del x, w, b
+    torch.cuda.empty_cache()
+    print(f"B1 = plain in {n_cases} cases (10 unet_2 layer shapes at "
+          "2x512x512 and 4 ragged shapes, f32 and bf16, ReLU on and off; "
+          "bf16 66x512x512x128->64, last image); max |err| f32 "
+          f"{b1_err_max[torch.float32]:.3e} (rtol 1e-4, atol 1e-4), bf16 "
+          f"{b1_err_max[torch.bfloat16]:.3e} (1 bf16 ulp + 1e-4), "
+          "against the plain version in f32 on the same inputs")
+    t = phase(5, "B1 build and against its plain version", t)
+
+    # ---- 6. the fast-conv U-Net path (B1's main path)
+    fast_model = copy.deepcopy(model)
+    fast_model.fast_conv = True
+    imgs4 = smooth_covers(4, 512, seed=12)
+    b_ref, l_ref = predict_batch(model_gpu, imgs4)
+    fast_gpu = copy.deepcopy(fast_model).to(dev)
+    fused_reflect_conv.reset_launches()
+    b_fast, l_fast = predict_batch(fast_gpu, imgs4)
+    per_forward = fused_reflect_conv.launches
+    d_beta = float((b_fast - b_ref).abs().max())
+    d_l1 = float(((l_fast - l_ref).abs() / l_ref).max())
+    print(f"unet_2 f32 4x512x512, fast_conv=True vs False on the card: "
+          f"max |d beta| {d_beta:.3e}, max rel d l1 {d_l1:.3e}; "
+          f"B1 launches in one forward: {per_forward}")
+    check(per_forward == len(UNET2_CONVS),
+          f"B1 launched {per_forward} times in one unet_2 forward")
+    check(d_beta <= 1e-5 and d_l1 <= 1e-4,
+          "fast_conv=True != fast_conv=False")
+    fast_server = UNetWSServer(fast_model)
+    fb, fl = fast_server.predict(img[0])
+    print(f"bf16 server, fast_conv=True: beta {fb:.6f} l1 {fl:.6f} "
+          f"(fast_conv=False: beta {b16:.6f} l1 {l16:.6f})")
+    check(np.isfinite(fb) and np.isfinite(fl), "fast bf16 server not finite")
+    check(abs(fb - b_gpu) < 5e-3 and abs(fl - l_gpu) < 0.5,
+          "fast bf16 server far from f32")
+    fserial = np.asarray([fast_server.predict(im) for im in imgs[:8]])
+    fstreamed = np.asarray(list(fast_server.predict_many(iter(imgs[:8]))))
+    check(np.allclose(fstreamed, fserial, rtol=1e-6, atol=1e-7),
+          "fast predict_many != serial predict")
+    fast_lat = measure_latency(fast_server, reps=10)
+    b1_launches = fused_reflect_conv.launches
+    print("serving fast_conv=True (bf16, b1, 512x512): " +
+          json.dumps(fast_lat))
+    print(f"fast-conv path: B1 launches {b1_launches} (10 a forward: "
+          "predict_batch, server warm-up, predict, predict_many, "
+          "measure_latency)")
+    check(b1_launches > 0 and b1_launches % len(UNET2_CONVS) == 0,
+          f"B1 launches {b1_launches} on the fast-conv path")
+
+    # saliency through B1 (forward B1, backward the plain VJP)
+    sal_img = smooth_covers(1, 512, seed=13)[0]
+    patches = {}
+    for fc, m in ((False, model_gpu), (True, fast_gpu)):
+        fused_reflect_conv.reset_launches()
+        patches[fc] = unet_saliency(m, sal_img, 200, 300)
+        check(fused_reflect_conv.launches == (10 if fc else 0),
+              f"saliency fast_conv={fc}: B1 launches "
+              f"{fused_reflect_conv.launches}")
+    d_sal = float(np.abs(patches[True] - patches[False]).max())
+    sal_max = float(np.abs(patches[False]).max())
+    print(f"saliency 512x512 f32 at (200, 300), 17x17 patch: max |patch| "
+          f"{sal_max:.4e}, fast_conv=True vs False max |d| {d_sal:.3e}")
+    # both f32; a 2x2 max-pool window with two values within ~1e-6 can
+    # route the gradient to the other element when the conv sums differ
+    # in order (tests/test_torch_saliency.py), hence a bound relative to
+    # the patch
+    check(np.all(np.isfinite(patches[True])) and sal_max > 0,
+          "saliency patch not finite or zero")
+    check(d_sal <= 1e-3 * sal_max, "saliency through B1 != cuDNN route")
+    del fast_gpu
+    t = phase(6, "fast-conv U-Net path", t)
+
+    # ---- 7. times
     b2_entry = None
     for B in (128, 8):
         bufs = [x128[:B].clone() for _ in range(4 if B == 128 else 1)]
@@ -349,39 +527,110 @@ def main() -> int:
           "+38 weighted). No single PyTorch call computes B2: "
           "library_ms is null.")
 
+    b1_rows = {torch.bfloat16: [], torch.float32: []}
+    for dtype in (torch.bfloat16, torch.float32):
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        for layer, S, C, Co in UNET2_CONVS:
+            x, w, b = conv_inputs((32, S, S, C), Co, dtype, seed=S + C)
+            xc = x.permute(0, 3, 1, 2)       # channels-last NCHW view
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def kernel(v):
+                return fused_reflect_conv.conv3x3_reflect_fused(
+                    v, w, b, relu=True)
+
+            def plain(v):
+                return fused_reflect_conv.conv3x3_reflect_fused_plain(
+                    v, w, b, True)
+
+            def library(v):
+                return F.relu(F.conv2d(F.pad(v, (1, 1, 1, 1),
+                                             mode="reflect"), wc, b))
+
+            cost = fused_reflect_conv.conv_cost(32, S, S, C, Co,
+                                                x.element_size())
+            t_bytes = 1e3 * cost["bytes"] / HBM_BYTES_PER_S
+            t_ops = 1e3 * cost["flops"] / peak
+            row = {"layer": layer, "dtype": str(dtype)[6:],
+                   "shape": [32, S, S, C, Co],
+                   "ms": graph_ms(kernel, [x], reps=3, iters=2),
+                   "plain_ms": graph_ms(plain, [x], reps=3, iters=2),
+                   "library_ms": graph_ms(library, [xc], reps=3, iters=2),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations"}
+            row["tflops"] = cost["flops"] / row["ms"] / 1e9
+            print("B1 time: " + json.dumps(row))
+            b1_rows[dtype].append(row)
+            del x, w, b, xc, wc
+    torch.cuda.empty_cache()
+    print("B1 ms, plain_ms, library_ms: device time of one call, CUDA-graph "
+          "replay, B=32 at 512x512 (each input > 50 MB L2). bound = "
+          "max(bytes / 3.35e12 B/s, FLOPs / peak), peak 989e12 bf16, 67e12 "
+          "f32; bytes = x + w + b + out once, FLOPs = 2*9*C*Cout*B*H*W. "
+          "library_ms: cuDNN F.conv2d on the reflect-padded channels-last "
+          "input + ReLU, same dtype.")
+    for dtype, rows in b1_rows.items():
+        tot = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        by = {k: sum(r["bound_ms"] for r in rows if r["bound_by"] == k)
+              for k in ("bytes", "operations")}
+        tot["bound_by"] = max(by, key=by.get)
+        print(f"B1 10 layers of one unet_2 forward, B=32, {str(dtype)[6:]}: "
+              + json.dumps(tot))
+        if dtype == torch.bfloat16:
+            # the kernels line: one bf16 unet_2 forward's 10 launches, the
+            # dtype the server runs in
+            b1_entry = tot
+
     flop_img = 2 * unet_macs(2, 512)
     for dtype in (torch.bfloat16, torch.float32):
-        m = copy.deepcopy(model).to(device=dev, dtype=dtype)
-        m.compute_dtype = dtype
         batch = [torch.from_numpy(smooth_covers(32, 512, seed=8 + i)).to(dev)
                  for i in range(2)]
-        ms = cuda_ms(lambda x: predict_batch(m, x), batch, reps=3, iters=3)
-        print(f"unet_2 batch throughput, B=32, 512x512, {str(dtype)[6:]}: "
-              f"{ms:.3f} ms/batch = {32e3 / ms:.1f} img/s "
-              f"({32 * flop_img / (ms * 1e-3) / 1e12:.1f} TFLOP/s at "
-              f"{flop_img:.4g} FLOP/img)")
-        del m, batch
-    t = phase(5, "times", t)
+        for fc in FAST_CONV:
+            m = copy.deepcopy(model).to(device=dev, dtype=dtype)
+            m.compute_dtype = dtype
+            m.fast_conv = fc
+            ms = cuda_ms(lambda x: predict_batch(m, x), batch, reps=3,
+                         iters=3)
+            print(f"unet_2 batch throughput, B=32, 512x512, "
+                  f"{str(dtype)[6:]}, fast_conv={fc}: "
+                  f"{ms:.3f} ms/batch = {32e3 / ms:.1f} img/s "
+                  f"({32 * flop_img / (ms * 1e-3) / 1e12:.1f} TFLOP/s at "
+                  f"{flop_img:.4g} FLOP/img)")
+            del m
+        del batch
+    t = phase(7, "times", t)
 
-    # ---- 6. where the time goes (torch.profiler; a measurement, so a
+    # ---- 8. where the time goes (torch.profiler; a measurement, so a
     # profiler that sees no device events prints "not measured")
-    m = copy.deepcopy(model).to(device=dev, dtype=torch.bfloat16)
-    m.compute_dtype = torch.bfloat16
     x32 = torch.from_numpy(smooth_covers(32, 512, seed=10)).to(dev)
     x1 = img[0]
-    for label, fn, steps in [
-            ("unet_2 bf16 batch step, B=32", lambda: predict_batch(m, x32),
-             2),
-            ("bf16 serving, b1", lambda: server.predict(x1), 20),
-            ("attack_sweep KB, 4 batches of 8",
-             lambda: attack_sweep(cover_batches, kernel_name="KB"), 5)]:
+    steps_of = []
+    for fc in FAST_CONV:
+        m = copy.deepcopy(model).to(device=dev, dtype=torch.bfloat16)
+        m.compute_dtype = torch.bfloat16
+        m.fast_conv = fc
+        steps_of.append((f"unet_2 bf16 batch step, B=32, fast_conv={fc}",
+                         lambda m=m: predict_batch(m, x32), 2))
+    steps_of += [
+        ("bf16 serving, b1", lambda: server.predict(x1), 20),
+        ("bf16 serving, b1, fast_conv=True",
+         lambda: fast_server.predict(x1), 5),
+        ("attack_sweep KB, 4 batches of 8",
+         lambda: attack_sweep(cover_batches, kernel_name="KB"), 5)]
+    for label, fn, steps in steps_of:
         prof = device_profile(fn, steps)
         if prof["busy_share"] is None:
             print(f"profile {label}: not measured (no device events)")
-        else:
-            print(f"profile {label}: " + json.dumps(prof))
-    del m, x32
-    t = phase(6, "where the time goes", t)
+            continue
+        print(f"profile {label}: " + json.dumps(prof))
+        if label.endswith("fast_conv=True"):
+            check(not any(prof["layout_ms"].values()),
+                  f"{label}: a reflect pad or layout transpose kernel ran")
+    del steps_of, m, x32
+    t = phase(8, "where the time goes", t)
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
@@ -396,6 +645,14 @@ def main() -> int:
         "bound_ms": b2_entry["bound_ms"],
         "bound_by": b2_entry["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "conv3x3_reflect_fused",
+        "route": "cuda",
+        "source": "wsunet_tpu_torch/csrc/reflect_conv3x3.cu",
+        "replaces": "wsunet_tpu/experiments/pallas_reflect_conv.py:128",
+        "launches": b1_launches,
+        "max_abs_err": max(b1_err_max.values()),
+        **b1_entry,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

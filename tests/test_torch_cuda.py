@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from wsunet_tpu_torch.analyses import unet_saliency
 from wsunet_tpu_torch.models import get_model, init_unet
-from wsunet_tpu_torch.ops import NAMED_FILTERS_2D, fused_ws, ws_attack
+from wsunet_tpu_torch.ops import (NAMED_FILTERS_2D, fused_reflect_conv,
+                                  fused_ws, ws_attack)
 from wsunet_tpu_torch.serve import UNetWSServer
 from wsunet_tpu_torch.ws import attack_sweep, predict_batch
 
@@ -26,9 +28,82 @@ RTOL, ATOL = 1e-4, 1e-6
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the Triton kernel has no CPU "
-                    "mode)")
+        pytest.skip("needs an NVIDIA card (the Triton and CUDA kernels have "
+                    "no CPU mode)")
     return torch.device("cuda")
+
+
+def _b1_within_tolerance(got, want):
+    """B1 against its plain version run in f32 on the same inputs.  f32:
+    rtol 1e-4 / atol 1e-4 (sums of up to 9*C terms in another order).
+    bf16: one bf16 ulp of the output (the kernel rounds its f32 sum once)
+    plus atol 1e-4 for values near 0."""
+    if got.dtype == torch.bfloat16:
+        tol = torch.ldexp(torch.ones_like(want),
+                          torch.frexp(want).exponent - 8)
+    else:
+        tol = 1e-4 * want.abs()
+    return bool(((got.float() - want).abs() <= tol + 1e-4).all())
+
+
+def _xwb(shape, cout, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    C = shape[-1]
+    x = torch.randn(shape, device=device, generator=g)
+    w = torch.randn((3, 3, C, cout), device=device, generator=g) / (3 * C ** .5)
+    b = 0.1 * torch.randn(cout, device=device, generator=g)
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, cout", [
+    ((3, 37, 29, 5), 7), ((1, 2, 2, 1), 3), ((2, 9, 130, 64), 64),
+    ((2, 64, 64, 1), 64), ((1, 32, 32, 256), 128), ((1, 20, 20, 9), 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+def test_b1_matches_plain(cuda, shape, cout, dtype, relu):
+    x, w, b = _xwb(shape, cout, dtype, cuda, seed=sum(shape) + cout)
+    fused_reflect_conv.reset_launches()
+    got = fused_reflect_conv.conv3x3_reflect_fused(x, w, b, relu=relu)
+    assert fused_reflect_conv.launches == 1
+    torch.cuda.synchronize()
+    want = fused_reflect_conv.conv3x3_reflect_fused_plain(
+        x.float(), w.float(), b.float(), relu)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _b1_within_tolerance(got, want)
+
+
+@pytest.mark.cuda
+def test_b1_rejects_non_contiguous(cuda):
+    x, w, b = _xwb((2, 8, 8, 4), 4, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):
+        fused_reflect_conv.conv3x3_reflect_fused(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError):
+        fused_reflect_conv.conv3x3_reflect_fused(x, w.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_fast_conv_unet_on_card(cuda):
+    """unet_1 through B1 (6 launches a forward) against cuDNN's route, f32,
+    and the bf16 server on B1; the saliency gradient through B1."""
+    model = init_unet(get_model("unet_1"), seed=0)
+    fast = copy.deepcopy(model)
+    fast.fast_conv = True
+    x = _u8((2, 64, 64), seed=5)
+    b0, l0 = predict_batch(copy.deepcopy(model).to(cuda), x)
+    fused_reflect_conv.reset_launches()
+    b1, l1 = predict_batch(copy.deepcopy(fast).to(cuda), x)
+    assert fused_reflect_conv.launches == 6
+    np.testing.assert_allclose(b1.cpu().numpy(), b0.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(l1.cpu().numpy(), l0.cpu().numpy(), rtol=1e-4)
+    srv = UNetWSServer(fast, size=64)
+    got = srv.predict(x[0])
+    assert np.all(np.isfinite(got)) and abs(got[0] - float(b0[0])) < 5e-3
+    img = _u8((1, 64, 64), seed=7)[0]
+    s0 = unet_saliency(copy.deepcopy(model).to(cuda), img, 30, 33)
+    s1 = unet_saliency(copy.deepcopy(fast).to(cuda), img, 30, 33)
+    # a max-pool near-tie can move the gradient (tests/test_torch_saliency)
+    np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-3 * np.abs(s0).max())
 
 
 def _u8(shape, seed):

@@ -208,10 +208,13 @@ def test_infer_unet_rejects_model_on_other_device():
 def test_port_imports_no_jax_pandas_pil_or_triton():
     code = (
         "import sys, wsunet_tpu_torch\n"
-        "from wsunet_tpu_torch import _device, serve\n"
+        "from wsunet_tpu_torch import _device, io, serve\n"
+        "from wsunet_tpu_torch.analyses import saliency\n"
         "from wsunet_tpu_torch.data import transforms\n"
         "from wsunet_tpu_torch.models import unet, convert\n"
         "from wsunet_tpu_torch.ops import filters, ws, fused_ws\n"
+        "from wsunet_tpu_torch.ops import (_cuda_build, reflect_conv,\n"
+        "                                  fused_reflect_conv)\n"
         "from wsunet_tpu_torch.utils import errors\n"
         "from wsunet_tpu_torch.ws import estimate, unet_eval\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

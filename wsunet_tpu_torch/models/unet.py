@@ -11,12 +11,22 @@ NCHW.
 
 Submodules carry the Flax module names (``e1_conv1``, ``e2.conv1``,
 ``up2``, ``d1.conv2``, ``outconv``), so ``convert.unet_state_dict_from_flax``
-maps a Flax checkpoint one to one.  Parameters stay f32; ``compute_dtype``
-(f32 by default, bf16 for serving) is the type the convolutions run in.
-The convolutions are cuDNN's ``F.conv2d``, as the JAX package leaves them
-to XLA; on CUDA the f32 path runs with TF32 off.  ``UniformDropout`` is a
-training-time module (the identity at eval) and waits for the training
-slice.
+maps a Flax checkpoint one to one.  Parameters stay f32 and OIHW;
+``compute_dtype`` (f32 by default, bf16 for serving) is the type the
+convolutions run in; on CUDA the f32 path runs with TF32 off.
+
+``fast_conv`` picks the route of every 3x3 reflect conv, as in JAX:
+
+- ``False`` (default): reflect pad, then cuDNN's ``F.conv2d``, NCHW.
+- ``"borderfix"``: zero-padded SAME conv plus exact border corrections
+  (``ops.reflect_conv``).
+- ``True``: kernel B1 (``ops.fused_reflect_conv``), bias and ReLU fused.
+
+Both fast routes take NHWC, so their activations are ``channels_last``:
+the NHWC view ``h.permute(0, 2, 3, 1)`` of a channels-last tensor is
+contiguous, and max pooling, the transposed convs and the skip concat
+keep that layout.  ``UniformDropout`` is a training-time module (the
+identity at eval) and waits for the training slice.
 """
 
 import math
@@ -26,21 +36,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import disable_tf32
+from ..ops.fused_reflect_conv import conv3x3_reflect_fused
+from ..ops.reflect_conv import conv3x3_reflect_borderfix
 
 WIDTHS = [64, 128, 256, 512, 1024]
+FAST_CONV = (False, "borderfix", True)
 
 
 class _Conv3x3Reflect(nn.Conv2d):
-    """Reflect pad 1 px, then a VALID 3x3 conv (+ bias), in the dtype of
-    the input."""
+    """ReLU of a reflect-padded 3x3 conv (+ bias), in the dtype of the
+    input, by the route ``fast`` names (see ``fast_conv`` above)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3)
 
-    def forward(self, x, weight=None):
-        w = self.weight if weight is None else weight
-        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"),
-                        w.to(x.dtype), self.bias.to(x.dtype))
+    def forward(self, x, weight=None, fast=False):
+        w = (self.weight if weight is None else weight).to(x.dtype)
+        b = self.bias.to(x.dtype)
+        if not fast:
+            return F.relu(F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"),
+                                   w, b))
+        xn = x.contiguous(memory_format=torch.channels_last).permute(
+            0, 2, 3, 1)
+        hwio = w.permute(2, 3, 1, 0).contiguous()
+        conv = (conv3x3_reflect_borderfix if fast == "borderfix"
+                else conv3x3_reflect_fused)
+        return conv(xn, hwio, b, relu=True).permute(0, 3, 1, 2)
 
 
 class _ConvBlock(nn.Module):
@@ -51,8 +72,8 @@ class _ConvBlock(nn.Module):
         self.conv1 = _Conv3x3Reflect(in_channels, features)
         self.conv2 = _Conv3x3Reflect(features, features)
 
-    def forward(self, x):
-        return F.relu(self.conv2(F.relu(self.conv1(x))))
+    def forward(self, x, fast=False):
+        return self.conv2(self.conv1(x, fast=fast), fast=fast)
 
 
 class UNet(nn.Module):
@@ -61,12 +82,17 @@ class UNet(nn.Module):
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  nsteps: int = 2, disable_center: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 fast_conv=False):
         super().__init__()
         if not 0 <= nsteps <= 4:
             raise ValueError(f"nsteps must be in 0..4, got {nsteps}")
+        if not any(fast_conv is v for v in FAST_CONV):
+            raise ValueError(f"fast_conv must be one of {FAST_CONV}, got "
+                             f"{fast_conv!r}")
         self.nsteps = nsteps
         self.compute_dtype = compute_dtype
+        self.fast_conv = fast_conv
         self.e1_conv1 = _Conv3x3Reflect(in_channels, WIDTHS[0])
         self.e1_conv2 = _Conv3x3Reflect(WIDTHS[0], WIDTHS[0])
         for step in range(1, nsteps + 1):
@@ -88,20 +114,21 @@ class UNet(nn.Module):
         x = x.to(self.compute_dtype)
         if x.is_cuda and x.dtype == torch.float32:
             disable_tf32()
-        h = F.relu(self.e1_conv1(
-            x, weight=self.e1_conv1.weight * self.center_mask))
-        h = F.relu(self.e1_conv2(h))
+        fast = self.fast_conv
+        h = self.e1_conv1(x, weight=self.e1_conv1.weight * self.center_mask,
+                          fast=fast)
+        h = self.e1_conv2(h, fast=fast)
         skips = [h]
         for step in range(1, self.nsteps + 1):
             h = F.max_pool2d(h, 2, stride=2)
-            h = getattr(self, f"e{step + 1}")(h)
+            h = getattr(self, f"e{step + 1}")(h, fast=fast)
             skips.append(h)
         for step in range(self.nsteps, 0, -1):
             up = getattr(self, f"up{step}")
             h = F.conv_transpose2d(h, up.weight.to(h.dtype),
                                    up.bias.to(h.dtype), stride=2)
             h = torch.cat([h, skips[step - 1]], dim=1)
-            h = getattr(self, f"d{step}")(h)
+            h = getattr(self, f"d{step}")(h, fast=fast)
         out = F.conv2d(h, self.outconv.weight.to(h.dtype),
                        self.outconv.bias.to(h.dtype))
         return torch.sigmoid(out).to(in_dtype)
@@ -128,10 +155,13 @@ def init_unet(model: UNet, seed: int) -> UNet:
 
 def get_model(name: str, in_channels: int = 1, out_channels: int = 1,
               disable_center: bool = False,
-              compute_dtype: torch.dtype = torch.float32) -> UNet:
-    """Model factory; names are ``unet_<nsteps>``."""
+              compute_dtype: torch.dtype = torch.float32,
+              fast_conv=False) -> UNet:
+    """Model factory; names are ``unet_<nsteps>``; ``fast_conv`` in
+    ``FAST_CONV``."""
     if not name.lower().startswith("unet"):
         raise NotImplementedError(name)
     return UNet(in_channels=in_channels, out_channels=out_channels,
                 nsteps=int(name.split("_")[1]),
-                disable_center=disable_center, compute_dtype=compute_dtype)
+                disable_center=disable_center, compute_dtype=compute_dtype,
+                fast_conv=fast_conv)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .io import imread_gray_u8
 from .ops.ws import ws_estimate_unet
 
 
@@ -122,7 +123,7 @@ def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
     import concurrent.futures as futures
 
     if reader is None:
-        reader = _imread_gray_u8
+        reader = imread_gray_u8
 
     def decode(path):
         img = reader(path)
@@ -171,19 +172,6 @@ def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
                     continue
                 beta, l1 = pending.result()
                 yield {"name": name, "beta_hat": beta, "l1": l1}
-
-
-def _imread_gray_u8(path) -> np.ndarray:
-    """Luminance plane as HxW uint8; colour sources use OpenCV's BT.601
-    fixed-point rounding (as ``wsunet_tpu/io/imread.py``)."""
-    from PIL import Image
-
-    x = np.array(Image.open(path))
-    if x.ndim == 2:
-        return x
-    r, g, b = (x[..., i].astype("int64") for i in range(3))
-    y = (9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15
-    return y.clip(0, 255).astype("uint8")
 
 
 def _sync(device: torch.device) -> None:
