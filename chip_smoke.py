@@ -17,18 +17,25 @@ kernel against its plain PyTorch version:
    f32 on the card against f32 on the CPU for one 512x512 image, then the
    bf16 ``UNetWSServer`` (``predict``, ``predict_many``,
    ``measure_latency``).
-5. kernel B1 (the reflect-padded 3x3 conv, CUDA C++): its nvcc build, then
-   B1 against its plain version at the 10 ``unet_2`` layer shapes at
-   512x512 (B=2), f32 and bf16, ReLU on and off, at ragged shapes, and at
-   one input of more than 2^31 elements.
+5. kernel B1 (the reflect-padded 3x3 conv, CUDA C++, three variants:
+   ``wgmma``, ``direct``, ``fma``): the nvcc build of its two sources in
+   parallel, with ptxas' registers, shared memory and spills for every
+   kernel; then B1 against its plain version at the 10 ``unet_2`` layer
+   shapes at 512x512 (B=2), f32 and bf16 (bf16 twice, to catch a race),
+   ReLU on and off, at each variant's edge shapes (C = 16, 24, 48, 80;
+   Cout = 3, 7, 8, 130, 192; W = 29 and 130; H = W = 2; bf16 C = 130 and
+   C = 1), and at one input of more than 2^31 elements; each case checks
+   that the variant ``_variant`` names is the one that launched.
 6. the fast-conv U-Net path: ``unet_2`` with ``fast_conv=True`` (every 3x3
    conv through B1) against ``fast_conv=False`` in f32, with B1's launch
-   count read around it (10 a forward); the bf16 ``UNetWSServer`` on it;
-   the saliency gradient through B1 against the cuDNN route.
+   counts per variant read around each forward (f32: 9 ``fma`` + 1
+   ``direct``; bf16: 9 ``wgmma`` + 1 ``direct``); the bf16 ``UNetWSServer``
+   on it; the saliency gradient through B1 against the cuDNN route.
 7. times: B2 and its plain version at B=128 and B=8, 512x512, with the
    bound (device time from CUDA-graph replay, and B2's time per call when
    launched from Python); B1 per layer shape at B=32, 512x512, bf16 and
-   f32, beside its bound, its plain version and cuDNN's reflect-pad conv;
+   f32, by variant, beside its bound, its plain version and cuDNN's
+   reflect-pad conv in channels-last and in the model's own NCHW layout;
    U-Net batch throughput at B=32 in bf16 and f32 for ``fast_conv`` in
    {False, "borderfix", True}.
 8. where the time goes: torch.profiler over the U-Net batch step (each
@@ -43,6 +50,7 @@ prints no result.
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +105,23 @@ def b1_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     else:
         tol = 1e-4 * want.abs()
     return float(err.max()), bool((err <= tol + 1e-4).all())
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: the kernel
+    (demangled by hand), its registers, shared memory and spills."""
+    names = {"ILi128EE": "<128>", "ILi64EE": "<64>",
+             "I13__nv_bfloat16EE": "<bf16>", "IfEE": "<f32>"}
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(wgmma_kernel|direct_kernel|fma_kernel)(I\w+?EE)?",
+                      line)
+        if m:
+            name = m.group(1) + names.get(m.group(2) or "", "")
+        elif name and ("spill" in line or "registers" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return [f"{k}: {'; '.join(v)}" for k, v in out.items()]
 
 
 def conv_inputs(shape, cout, dtype, seed):
@@ -374,20 +399,25 @@ def main() -> int:
 
     # ---- 5. B1: build, then against its plain version on the card
     t_build = time.perf_counter()
-    _cuda_build.load("reflect_conv3x3")
-    build = _cuda_build.build_info("reflect_conv3x3")
-    print(f"B1 build (nvcc, sm_90a): {build['seconds']:.1f} s "
-          f"(load {time.perf_counter() - t_build:.1f} s)")
-    for line in build["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+    _cuda_build.load_all(fused_reflect_conv.SOURCES)
+    print(f"B1 build (nvcc, sm_90a, {len(fused_reflect_conv.SOURCES)} "
+          f"sources in parallel): {time.perf_counter() - t_build:.1f} s")
+    for src in fused_reflect_conv.SOURCES:
+        build = _cuda_build.build_info(src)
+        print(f"  csrc/{src}.cu: nvcc {build['seconds']:.1f} s")
+        for line in ptxas_lines(build["log"]):
+            print("  ptxas: " + line)
     b1_err_max = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_cases = 0
 
     def b1_case(label, x, w, b, relu, want_of=None):
         nonlocal n_cases
+        variant = fused_reflect_conv._variant(x.shape[-1], x.dtype)
+        before = fused_reflect_conv.launches_by_variant[variant]
         got = fused_reflect_conv.conv3x3_reflect_fused(x, w, b, relu=relu)
         torch.cuda.synchronize()
+        check(fused_reflect_conv.launches_by_variant[variant] == before + 1,
+              f"B1 {label}: variant {variant} did not launch")
         if want_of is None:
             want = fused_reflect_conv.conv3x3_reflect_fused_plain(
                 x.float(), w.float(), b.float(), relu)
@@ -397,17 +427,30 @@ def main() -> int:
         err, ok = b1_err(got, want)
         b1_err_max[x.dtype] = max(b1_err_max[x.dtype], err)
         n_cases += 1
-        check(ok, f"B1 {label} {str(x.dtype)[6:]} relu={relu}: "
+        check(ok, f"B1 {label} {str(x.dtype)[6:]} relu={relu} ({variant}): "
                   f"max |err| {err}")
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for layer, S, C, Co in UNET2_CONVS:
-            x, w, b = conv_inputs((2, S, S, C), Co, dtype, seed=S + C + Co)
-            for relu in (False, True):
-                b1_case(f"{layer} 2x{S}x{S}x{C}->{Co}", x, w, b, relu)
-        for shape, Co in [((3, 37, 29, 5), 7), ((1, 2, 2, 1), 3),
-                          ((2, 9, 130, 64), 64), ((1, 20, 20, 9), 130)]:
-            x, w, b = conv_inputs(shape, Co, dtype, seed=sum(shape))
+    # each variant's edges: C = 16 (the wgmma/fma boundary), 24, 48, 80
+    # (chunk tails), Cout = 3, 7, 8, 130, 192 (against 64/128-wide tiles),
+    # W = 29 and 130 against 64-column runs, H = W = 2, C = 130 (bf16:
+    # direct), C = 1, 5, 9 (direct)
+    edges = [((3, 37, 29, 5), 7), ((1, 2, 2, 1), 3), ((2, 9, 130, 64), 64),
+             ((1, 20, 20, 9), 130), ((1, 6, 40, 16), 64),
+             ((1, 6, 40, 24), 130), ((1, 6, 40, 48), 64),
+             ((1, 6, 40, 80), 192), ((1, 7, 33, 64), 8),
+             ((1, 7, 33, 64), 3), ((1, 7, 33, 16), 7), ((2, 9, 29, 64), 64),
+             ((1, 2, 2, 64), 64), ((1, 2, 2, 64), 128), ((1, 9, 9, 130), 70),
+             ((2, 7, 130, 1), 64)]
+    for dtype, passes in ((torch.float32, 1), (torch.bfloat16, 2)):
+        for rep in range(passes):
+            for layer, S, C, Co in UNET2_CONVS:
+                x, w, b = conv_inputs((2, S, S, C), Co, dtype,
+                                      seed=S + C + Co + 100 * rep)
+                for relu in (False, True):
+                    b1_case(f"{layer} 2x{S}x{S}x{C}->{Co} pass {rep}", x, w,
+                            b, relu)
+        for shape, Co in edges:
+            x, w, b = conv_inputs(shape, Co, dtype, seed=sum(shape) + Co)
             for relu in (False, True):
                 b1_case(f"{shape}->{Co}", x, w, b, relu)
         del x, w, b
@@ -421,14 +464,27 @@ def main() -> int:
     del x, w, b
     torch.cuda.empty_cache()
     print(f"B1 = plain in {n_cases} cases (10 unet_2 layer shapes at "
-          "2x512x512 and 4 ragged shapes, f32 and bf16, ReLU on and off; "
-          "bf16 66x512x512x128->64, last image); max |err| f32 "
+          f"2x512x512, f32 once and bf16 twice, and {len(edges)} edge "
+          "shapes, f32 and bf16, ReLU on and off; bf16 66x512x512x128->64, "
+          "last image); max |err| f32 "
           f"{b1_err_max[torch.float32]:.3e} (rtol 1e-4, atol 1e-4), bf16 "
           f"{b1_err_max[torch.bfloat16]:.3e} (1 bf16 ulp + 1e-4), "
-          "against the plain version in f32 on the same inputs")
+          "against the plain version in f32 on the same inputs; launches "
+          f"by variant {json.dumps(fused_reflect_conv.launches_by_variant)}")
     t = phase(5, "B1 build and against its plain version", t)
 
     # ---- 6. the fast-conv U-Net path (B1's main path)
+    # B1's launches on this path, by variant: the counts are read and reset
+    # around each step and summed here
+    b1_path = dict.fromkeys(fused_reflect_conv.launches_by_variant, 0)
+
+    def b1_take() -> dict:
+        got = dict(fused_reflect_conv.launches_by_variant)
+        for k, v in got.items():
+            b1_path[k] += v
+        fused_reflect_conv.reset_launches()
+        return got
+
     fast_model = copy.deepcopy(model)
     fast_model.fast_conv = True
     imgs4 = smooth_covers(4, 512, seed=12)
@@ -436,20 +492,25 @@ def main() -> int:
     fast_gpu = copy.deepcopy(fast_model).to(dev)
     fused_reflect_conv.reset_launches()
     b_fast, l_fast = predict_batch(fast_gpu, imgs4)
-    per_forward = fused_reflect_conv.launches
+    f32_forward = b1_take()
     d_beta = float((b_fast - b_ref).abs().max())
     d_l1 = float(((l_fast - l_ref).abs() / l_ref).max())
     print(f"unet_2 f32 4x512x512, fast_conv=True vs False on the card: "
           f"max |d beta| {d_beta:.3e}, max rel d l1 {d_l1:.3e}; "
-          f"B1 launches in one forward: {per_forward}")
-    check(per_forward == len(UNET2_CONVS),
-          f"B1 launched {per_forward} times in one unet_2 forward")
+          f"B1 launches in one f32 forward: {json.dumps(f32_forward)}")
+    check(f32_forward == {"wgmma": 0, "direct": 1, "fma": 9},
+          f"B1 launches in one f32 unet_2 forward: {f32_forward}")
     check(d_beta <= 1e-5 and d_l1 <= 1e-4,
           "fast_conv=True != fast_conv=False")
     fast_server = UNetWSServer(fast_model)
+    b1_take()  # the server's warm-up
     fb, fl = fast_server.predict(img[0])
+    bf16_forward = b1_take()
     print(f"bf16 server, fast_conv=True: beta {fb:.6f} l1 {fl:.6f} "
-          f"(fast_conv=False: beta {b16:.6f} l1 {l16:.6f})")
+          f"(fast_conv=False: beta {b16:.6f} l1 {l16:.6f}); B1 launches in "
+          f"one bf16 forward: {json.dumps(bf16_forward)}")
+    check(bf16_forward == {"wgmma": 9, "direct": 1, "fma": 0},
+          f"B1 launches in one bf16 unet_2 forward: {bf16_forward}")
     check(np.isfinite(fb) and np.isfinite(fl), "fast bf16 server not finite")
     check(abs(fb - b_gpu) < 5e-3 and abs(fl - l_gpu) < 0.5,
           "fast bf16 server far from f32")
@@ -458,24 +519,19 @@ def main() -> int:
     check(np.allclose(fstreamed, fserial, rtol=1e-6, atol=1e-7),
           "fast predict_many != serial predict")
     fast_lat = measure_latency(fast_server, reps=10)
-    b1_launches = fused_reflect_conv.launches
+    b1_take()
     print("serving fast_conv=True (bf16, b1, 512x512): " +
           json.dumps(fast_lat))
-    print(f"fast-conv path: B1 launches {b1_launches} (10 a forward: "
-          "predict_batch, server warm-up, predict, predict_many, "
-          "measure_latency)")
-    check(b1_launches > 0 and b1_launches % len(UNET2_CONVS) == 0,
-          f"B1 launches {b1_launches} on the fast-conv path")
 
     # saliency through B1 (forward B1, backward the plain VJP)
     sal_img = smooth_covers(1, 512, seed=13)[0]
     patches = {}
     for fc, m in ((False, model_gpu), (True, fast_gpu)):
-        fused_reflect_conv.reset_launches()
         patches[fc] = unet_saliency(m, sal_img, 200, 300)
-        check(fused_reflect_conv.launches == (10 if fc else 0),
-              f"saliency fast_conv={fc}: B1 launches "
-              f"{fused_reflect_conv.launches}")
+        sal = b1_take()
+        want = {"wgmma": 0, "direct": 1, "fma": 9} if fc else \
+            dict.fromkeys(sal, 0)
+        check(sal == want, f"saliency fast_conv={fc}: B1 launches {sal}")
     d_sal = float(np.abs(patches[True] - patches[False]).max())
     sal_max = float(np.abs(patches[False]).max())
     print(f"saliency 512x512 f32 at (200, 300), 17x17 patch: max |patch| "
@@ -487,6 +543,12 @@ def main() -> int:
     check(np.all(np.isfinite(patches[True])) and sal_max > 0,
           "saliency patch not finite or zero")
     check(d_sal <= 1e-3 * sal_max, "saliency through B1 != cuDNN route")
+    b1_launches = sum(b1_path.values())
+    print(f"fast-conv path: B1 launches {b1_launches} by variant "
+          f"{json.dumps(b1_path)} (10 a forward: predict_batch, server "
+          "warm-up, predict, predict_many, measure_latency, saliency)")
+    check(b1_launches % len(UNET2_CONVS) == 0 and all(b1_path.values()),
+          f"B1 launches {b1_path} on the fast-conv path")
     del fast_gpu
     t = phase(6, "fast-conv U-Net path", t)
 
@@ -535,6 +597,7 @@ def main() -> int:
             xc = x.permute(0, 3, 1, 2)       # channels-last NCHW view
             wc = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
+            wn = w.permute(3, 2, 0, 1).contiguous()  # OIHW, as the model's
 
             def kernel(v):
                 return fused_reflect_conv.conv3x3_reflect_fused(
@@ -548,43 +611,62 @@ def main() -> int:
                 return F.relu(F.conv2d(F.pad(v, (1, 1, 1, 1),
                                              mode="reflect"), wc, b))
 
+            def library_nchw(v):
+                return F.relu(F.conv2d(F.pad(v, (1, 1, 1, 1),
+                                             mode="reflect"), wn, b))
+
             cost = fused_reflect_conv.conv_cost(32, S, S, C, Co,
                                                 x.element_size())
             t_bytes = 1e3 * cost["bytes"] / HBM_BYTES_PER_S
             t_ops = 1e3 * cost["flops"] / peak
             row = {"layer": layer, "dtype": str(dtype)[6:],
+                   "variant": fused_reflect_conv._variant(C, dtype),
                    "shape": [32, S, S, C, Co],
                    "ms": graph_ms(kernel, [x], reps=3, iters=2),
                    "plain_ms": graph_ms(plain, [x], reps=3, iters=2),
-                   "library_ms": graph_ms(library, [xc], reps=3, iters=2),
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops
-                   else "operations"}
+                   "library_ms": graph_ms(library, [xc], reps=3, iters=2)}
+            del xc, wc
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            row["library_nchw_ms"] = graph_ms(library_nchw, [xn], reps=3,
+                                              iters=2)
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             row["tflops"] = cost["flops"] / row["ms"] / 1e9
             print("B1 time: " + json.dumps(row))
             b1_rows[dtype].append(row)
-            del x, w, b, xc, wc
-    torch.cuda.empty_cache()
-    print("B1 ms, plain_ms, library_ms: device time of one call, CUDA-graph "
-          "replay, B=32 at 512x512 (each input > 50 MB L2). bound = "
-          "max(bytes / 3.35e12 B/s, FLOPs / peak), peak 989e12 bf16, 67e12 "
-          "f32; bytes = x + w + b + out once, FLOPs = 2*9*C*Cout*B*H*W. "
-          "library_ms: cuDNN F.conv2d on the reflect-padded channels-last "
-          "input + ReLU, same dtype.")
+            del x, w, b, xn, wn
+            torch.cuda.empty_cache()
+    print("B1 ms, plain_ms, library_ms, library_nchw_ms: device time of one "
+          "call, CUDA-graph replay, B=32 at 512x512 (each input > 50 MB "
+          "L2). bound = max(bytes / 3.35e12 B/s, FLOPs / peak), peak "
+          "989e12 bf16, 67e12 f32; bytes = x + w + b + out once, FLOPs = "
+          "2*9*C*Cout*B*H*W. library_ms: cuDNN F.conv2d on the "
+          "reflect-padded channels-last input + ReLU; library_nchw_ms: the "
+          "same on a contiguous NCHW input and OIHW filter, the layout of "
+          "the fast_conv=False model; same dtype.")
     for dtype, rows in b1_rows.items():
-        tot = {k: sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms",
+                "library_nchw_ms")
+        tot = {k: sum(r[k] for r in rows) for k in keys}
         by = {k: sum(r["bound_ms"] for r in rows if r["bound_by"] == k)
               for k in ("bytes", "operations")}
         tot["bound_by"] = max(by, key=by.get)
         print(f"B1 10 layers of one unet_2 forward, B=32, {str(dtype)[6:]}: "
               + json.dumps(tot))
+        for v in sorted({r["variant"] for r in rows}):
+            part = {k: sum(r[k] for r in rows if r["variant"] == v)
+                    for k in keys}
+            print(f"  {v}: " + json.dumps(part))
         if dtype == torch.bfloat16:
             # the kernels line: one bf16 unet_2 forward's 10 launches, the
             # dtype the server runs in
-            b1_entry = tot
+            b1_entry = {k: tot[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+            check(tot["ms"] < tot["library_ms"],
+                  "bf16 B1 slower than cuDNN's reflect-pad conv")
 
     flop_img = 2 * unet_macs(2, 512)
+    step_ms = {}
     for dtype in (torch.bfloat16, torch.float32):
         batch = [torch.from_numpy(smooth_covers(32, 512, seed=8 + i)).to(dev)
                  for i in range(2)]
@@ -594,6 +676,7 @@ def main() -> int:
             m.fast_conv = fc
             ms = cuda_ms(lambda x: predict_batch(m, x), batch, reps=3,
                          iters=3)
+            step_ms[dtype, fc] = ms
             print(f"unet_2 batch throughput, B=32, 512x512, "
                   f"{str(dtype)[6:]}, fast_conv={fc}: "
                   f"{ms:.3f} ms/batch = {32e3 / ms:.1f} img/s "
@@ -601,6 +684,14 @@ def main() -> int:
                   f"{flop_img:.4g} FLOP/img)")
             del m
         del batch
+    for dtype, rows in b1_rows.items():
+        print(f"unet_2 {str(dtype)[6:]} B=32 step, fast_conv=False: "
+              f"{step_ms[dtype, False]:.3f} ms; its 10 convs alone as cuDNN "
+              "reflect-pad convs: NCHW (the model's layout) "
+              f"{sum(r['library_nchw_ms'] for r in rows):.3f} ms, "
+              f"channels-last {sum(r['library_ms'] for r in rows):.3f} ms; "
+              f"fast_conv=True step {step_ms[dtype, True]:.3f} ms, its 10 "
+              f"B1 launches alone {sum(r['ms'] for r in rows):.3f} ms")
     t = phase(7, "times", t)
 
     # ---- 8. where the time goes (torch.profiler; a measurement, so a
@@ -648,9 +739,12 @@ def main() -> int:
     }, {
         "name": "conv3x3_reflect_fused",
         "route": "cuda",
-        "source": "wsunet_tpu_torch/csrc/reflect_conv3x3.cu",
+        "source": "wsunet_tpu_torch/csrc/reflect_conv3x3_wgmma.cu",
+        "sources": [f"wsunet_tpu_torch/csrc/{src}.cu"
+                    for src in fused_reflect_conv.SOURCES],
         "replaces": "wsunet_tpu/experiments/pallas_reflect_conv.py:128",
         "launches": b1_launches,
+        "launches_by_variant": b1_path,
         "max_abs_err": max(b1_err_max.values()),
         **b1_entry,
     }]}))

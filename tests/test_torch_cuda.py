@@ -58,7 +58,13 @@ def _xwb(shape, cout, dtype, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape, cout", [
     ((3, 37, 29, 5), 7), ((1, 2, 2, 1), 3), ((2, 9, 130, 64), 64),
-    ((2, 64, 64, 1), 64), ((1, 32, 32, 256), 128), ((1, 20, 20, 9), 130)])
+    ((2, 64, 64, 1), 64), ((1, 32, 32, 256), 128), ((1, 20, 20, 9), 130),
+    # each variant's edges: C = 16 (the wgmma/fma boundary), 24, 48, 80;
+    # Cout = 8, 130, 192 against 64/128-wide tiles; W = 29 against 64-column
+    # runs; H = W = 2; bf16 C = 130 (not a multiple of 8: direct)
+    ((1, 6, 40, 16), 64), ((1, 6, 40, 24), 130), ((1, 6, 40, 48), 64),
+    ((1, 6, 40, 80), 192), ((1, 7, 33, 64), 8), ((2, 9, 29, 64), 64),
+    ((1, 2, 2, 64), 128), ((1, 9, 9, 130), 70)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu", [False, True])
 def test_b1_matches_plain(cuda, shape, cout, dtype, relu):
@@ -66,11 +72,30 @@ def test_b1_matches_plain(cuda, shape, cout, dtype, relu):
     fused_reflect_conv.reset_launches()
     got = fused_reflect_conv.conv3x3_reflect_fused(x, w, b, relu=relu)
     assert fused_reflect_conv.launches == 1
+    variant = fused_reflect_conv._variant(shape[-1], dtype)
+    assert fused_reflect_conv.launches_by_variant[variant] == 1
     torch.cuda.synchronize()
     want = fused_reflect_conv.conv3x3_reflect_fused_plain(
         x.float(), w.float(), b.float(), relu)
     assert got.dtype == dtype and got.shape == want.shape
     assert _b1_within_tolerance(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, want", [
+    (torch.bfloat16, {"wgmma": 9, "direct": 1, "fma": 0}),
+    (torch.float32, {"wgmma": 0, "direct": 1, "fma": 9})])
+def test_unet2_forward_launches_by_variant(cuda, dtype, want):
+    """One unet_2 forward through B1: e1.conv1 on the direct kernel, the 9
+    other convs on wgmma (bf16) or fma (f32), and finite outputs."""
+    model = init_unet(get_model("unet_2", fast_conv=True), seed=0)
+    model = model.to(device=cuda, dtype=dtype)
+    model.compute_dtype = dtype
+    x = torch.from_numpy(_u8((2, 64, 64), seed=8)).to(cuda)
+    fused_reflect_conv.reset_launches()
+    beta, l1 = predict_batch(model, x)
+    assert fused_reflect_conv.launches_by_variant == want
+    assert torch.isfinite(beta).all() and torch.isfinite(l1).all()
 
 
 @pytest.mark.cuda

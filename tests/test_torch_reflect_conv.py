@@ -11,7 +11,9 @@
 - the U-Net with ``fast_conv`` in {False, "borderfix", True} against the
   Flax U-Net with the same ``fast_conv`` on random weights (atol 1e-5, as
   ``tests/test_torch_unet.py``);
-- the wrapper's checks, and the nvcc build's errors (no nvcc here).
+- the wrapper's checks, its choice of CUDA variant (``_variant``) and its
+  launch counts, and the nvcc build's errors and parallel builds (no nvcc
+  here).
 
 Inputs come from seeded numpy and go to both packages.  On the CPU the
 port's wrapper takes the plain version; the CUDA kernel itself is held
@@ -136,7 +138,9 @@ def test_unet_fast_conv_matches_jax(fast_conv, nsteps, size, disable_center):
     fused_reflect_conv.reset_launches()
     with torch.no_grad():
         got = tmodel(torch.from_numpy(x[..., 0])[:, None])
-    assert fused_reflect_conv.launches == 0  # the CPU takes the plain version
+    # the CPU takes the plain version
+    assert fused_reflect_conv.launches == 0
+    assert not any(fused_reflect_conv.launches_by_variant.values())
     np.testing.assert_allclose(got[:, 0].numpy(), want[..., 0], atol=1e-5,
                                rtol=0)
 
@@ -185,7 +189,7 @@ def test_build_raises_with_nvcc_output(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="no sm_90a here"):
-        _cuda_build.load("reflect_conv3x3")
+        _cuda_build.load_all(["reflect_conv3x3"])
     assert not list((tmp_path / "kernels").iterdir())
 
 
@@ -201,16 +205,76 @@ def test_library_name_hashes_source_and_flags(monkeypatch):
 
 
 def test_cuda_source_exports_what_the_wrapper_binds():
-    """No nvcc here: check the C entry points by name and that the source
-    includes no PyTorch header."""
-    src = (REPO / "wsunet_tpu_torch" / "csrc" / "reflect_conv3x3.cu"
-           ).read_text()
-    c_block = src.split('extern "C" {', 1)[1]
-    exported = set(re.findall(r"^(?:int|const char\*) (\w+)\(", c_block,
-                              re.M))
-    assert exported == {*fused_reflect_conv._ENTRY.values(),
-                        "reflect_conv3x3_error_string"}
-    assert not re.search(r"#include\s*[<\"](torch|ATen|c10)", src)
+    """No nvcc here: check each source's C entry points by name, that each
+    entry point the wrapper binds lies in the source it loads it from, and
+    that no source includes a PyTorch header."""
+    exported = {}
+    for src in fused_reflect_conv.SOURCES:
+        text = (REPO / "wsunet_tpu_torch" / "csrc" / f"{src}.cu").read_text()
+        c_block = text.split('extern "C" {', 1)[1]
+        exported[src] = set(re.findall(r"^(?:int|const char\*) (\w+)\(",
+                                       c_block, re.M))
+        assert not re.search(r"#include\s*[<\"](torch|ATen|c10)", text)
+    want = {src: set() for src in fused_reflect_conv.SOURCES}
+    for src, entry in fused_reflect_conv._ENTRY.values():
+        want[src].add(entry)
+    want["reflect_conv3x3"].add("reflect_conv3x3_error_string")
+    assert exported == want
+    assert set(fused_reflect_conv.SOURCES) == {"reflect_conv3x3",
+                                               "reflect_conv3x3_wgmma"}
+    # every (variant, dtype) that _variant can name has an entry point
+    named = {(fused_reflect_conv._variant(C, dt), dt)
+             for C in range(1, 80) for dt in (torch.float32, torch.bfloat16)}
+    assert named == set(fused_reflect_conv._ENTRY)
+
+
+@pytest.mark.parametrize("C, bf16, f32", [
+    (1, "direct", "direct"), (8, "direct", "direct"), (9, "direct", "direct"),
+    (15, "direct", "direct"), (16, "wgmma", "fma"), (24, "wgmma", "fma"),
+    (64, "wgmma", "fma"), (130, "direct", "fma"), (256, "wgmma", "fma")])
+def test_variant_by_channels_and_dtype(C, bf16, f32):
+    """wgmma: bf16 with C % 8 == 0 and C >= 16; fma: f32 with C >= 16;
+    direct: the rest."""
+    assert fused_reflect_conv._variant(C, torch.bfloat16) == bf16
+    assert fused_reflect_conv._variant(C, torch.float32) == f32
+
+
+def test_unet2_layers_take_nine_wide_and_one_direct():
+    """unet_2's 10 convs: e1.conv1 (C=1) is direct, the 9 others wgmma in
+    bf16 and fma in f32."""
+    cin = [1, 64, 64, 128, 128, 256, 256, 128, 128, 64]
+    for dtype, wide in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
+        got = [fused_reflect_conv._variant(C, dtype) for C in cin]
+        assert got == ["direct"] + [wide] * 9
+
+
+def test_reset_launches_clears_every_count(monkeypatch):
+    monkeypatch.setattr(fused_reflect_conv, "launches", 7)
+    monkeypatch.setitem(fused_reflect_conv.launches_by_variant, "wgmma", 5)
+    monkeypatch.setitem(fused_reflect_conv.launches_by_variant, "direct", 2)
+    fused_reflect_conv.reset_launches()
+    assert fused_reflect_conv.launches == 0
+    assert fused_reflect_conv.launches_by_variant == {
+        "wgmma": 0, "direct": 0, "fma": 0}
+
+
+def test_builds_start_together(tmp_path, monkeypatch):
+    """load_all starts one nvcc a source, all before the first ends, and
+    raises with every failed build's output."""
+    (tmp_path / "bin").mkdir()
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\necho start >> {log}\nsleep 1\n"
+                    f"echo end >> {log}\necho 'error: no card' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError) as err:
+        _cuda_build.load_all(fused_reflect_conv.SOURCES)
+    for src in fused_reflect_conv.SOURCES:
+        assert f"failed to build {src} " in str(err.value)
+    assert log.read_text().split() == ["start", "start", "end", "end"]
+    assert not list((tmp_path / "kernels").iterdir())
 
 
 def test_fast_conv_entry_points_need_a_card():

@@ -1,7 +1,8 @@
 """Build the port's CUDA C++ kernels with ``nvcc`` and load them with ctypes.
 
 A source ``wsunet_tpu_torch/csrc/<name>.cu`` with a plain C interface (no
-PyTorch header) is compiled at its first use into
+PyTorch header) is compiled at its first use (several sources at once in
+parallel, ``load_all``) into
 ``build/kernels/lib<name>_<hash>.so`` under the repository root, where the
 hash covers the source and the flags, so an edited source never loads a
 stale library.  ``nvcc`` is taken from ``$CUDA_HOME/bin``, else
@@ -57,35 +58,48 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _build(name: str, so: pathlib.Path) -> str:
-    """Compile ``csrc/<name>.cu`` into ``so`` (written under a temporary
-    name, then renamed, so a concurrent build never loads half a file);
-    returns nvcc's output."""
+def _start(name: str, so: pathlib.Path) -> tuple:
+    """Start nvcc on ``csrc/<name>.cu``, writing ``so`` under a temporary
+    name (renamed when the build succeeds, so a concurrent build never
+    loads half a file)."""
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return proc.stdout + proc.stderr
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return cmd, proc, tmp, time.perf_counter()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load_all(names) -> dict:
+    """The loaded libraries of ``csrc/<name>.cu`` for each name, by name.
+    Those not yet built are built in parallel: one nvcc each, all started
+    together.  A failed build raises with nvcc's output, after every
+    started build has ended."""
     with _lock:
-        if name not in _loaded:
+        jobs = {}
+        for name in dict.fromkeys(names):
+            if name in _loaded:
+                continue
             so = library_path(name)
-            seconds, log = 0.0, ""
-            if not so.exists():
-                t0 = time.perf_counter()
-                log = _build(name, so)
-                seconds = time.perf_counter() - t0
-            _loaded[name] = (ctypes.CDLL(str(so)), seconds, log)
-        return _loaded[name][0]
+            if so.exists():
+                _loaded[name] = (ctypes.CDLL(str(so)), 0.0, "")
+            else:
+                jobs[name] = (so, *_start(name, so))
+        failed = []
+        for name, (so, cmd, proc, tmp, t0) in jobs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(
+                    f"nvcc failed to build {name} (exit {proc.returncode}):"
+                    f"\n{' '.join(cmd)}\n{log}")
+                continue
+            os.replace(tmp, so)
+            _loaded[name] = (ctypes.CDLL(str(so)), time.perf_counter() - t0,
+                             log)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return {name: _loaded[name][0] for name in names}
 
 
 def build_info(name: str) -> dict:

@@ -9,12 +9,12 @@ pallas_reflect_conv.py::_forward`` (body ``_kernel``, public entry
 x NHWC ``[B, H, W, C]`` contiguous, w HWIO ``[3, 3, C, Cout]``, b
 ``[Cout]``, all f32 or all bf16; the output is NHWC in x's dtype.
 
-- ``conv3x3_reflect_fused`` is the wrapper.  A CUDA tensor goes to the
-  hand-written CUDA kernel ``csrc/reflect_conv3x3.cu`` (built with nvcc at
-  first use, ``_cuda_build``), a CPU tensor to the plain version; anything
-  else raises.  On CUDA there is no fallback: unlike the Pallas kernel's
-  ``_supported`` gate, the CUDA kernel takes every shape (C_in 1 and up,
-  any H, W >= 2, any batch).
+- ``conv3x3_reflect_fused`` is the wrapper.  A CUDA tensor goes to one
+  of three hand-written CUDA kernels (built with nvcc at first use,
+  ``_cuda_build``), a CPU tensor to the plain version; anything else
+  raises.  On CUDA there is no fallback: unlike the Pallas kernel's
+  ``_supported`` gate, the kernels together take every shape (C_in 1 and
+  up, any H, W >= 2, any batch).
 - ``conv3x3_reflect_fused_plain`` is the port of ``_reference``: reflect
   pad, VALID conv, + b, ReLU.
 - The gradient is a ``torch.autograd.Function`` whose forward is the
@@ -22,14 +22,32 @@ x NHWC ``[B, H, W, C]`` contiguous, w HWIO ``[3, 3, C, Cout]``, b
   custom VJP's ``_bwd`` is (there is no backward kernel); ``relu`` is not
   differentiable.
 
-What bounds the kernel on an H100 and what its design does about it:
-the bytes of one read of x and one write of out, and 2*9*C*Cout
-operations a pixel.  The kernel reads each input tile once with its halo
-and applies the reflect boundary as it loads, so no padded copy of x is
-made, and adds the bias and ReLU before the one store, so the output is
-written once.  Its products run on CUDA cores in f32 from shared memory;
-tensor cores (wgmma) and TMA-staged tiles are what would bring the bf16
-version near its bound.
+``_variant(C, dtype)`` picks the kernel from the input channels and the
+type alone.  Each is its own C entry point; none falls back to another.
+What bounds each on an H100 and what its design does about it:
+
+- ``"wgmma"`` (bf16, C a multiple of 8, C >= 16: every ``unet_2`` layer
+  but the first; ``csrc/reflect_conv3x3_wgmma.cu``).  Bound by the tensor
+  cores' 2*9*C*Cout operations a pixel at C >= 128 and as much by its
+  bytes at C = 64.  An implicit GEMM on wgmma: 256 output pixels (4 rows
+  of 64) x 128 output channels or 512 pixels x 64 channels a block, K = 9
+  taps x chunks of 16 channels; the halo tile of each chunk is copied with
+  16-byte cp.async from the reflected source pixels into a four-stage
+  ring, laid out so that one staged tile is the A operand of all 9 taps (a
+  descriptor shift, no im2col copy).
+- ``"direct"`` (every C below 16, and bf16 with C not a multiple of 8:
+  the first conv, 1 -> 64; ``csrc/reflect_conv3x3.cu``).  Bound by its
+  output write.  A thread reads its 9*C reflected inputs once and writes
+  4 pixels x 8 channels with 16-byte stores.
+- ``"fma"`` (f32, C >= 16; ``csrc/reflect_conv3x3.cu``).  Bound by the
+  CUDA cores' f32 rate (TF32 stays off, as JAX pins HIGHEST).  f32 FMAs
+  from shared memory, summed per output in the order (c, kh, kw), which
+  matches cuDNN's f32 result bit for bit; chunks are staged with cp.async
+  into a two-buffer ring, so loads overlap the FMAs.
+
+All read each input tile once with its halo and apply the reflect
+boundary as they load, so no padded copy of x is made, and add the bias
+and ReLU before the one store, so the output is written once.
 """
 
 import ctypes
@@ -39,18 +57,42 @@ import torch.nn.functional as F
 
 from .._device import disable_tf32
 
-# Launches of the CUDA kernel since the last reset (one per wrapper call
-# on a CUDA tensor; calls that take the plain version do not count).
+# Launches of the CUDA kernels since the last reset (one per wrapper call
+# on a CUDA tensor; calls that take the plain version do not count), in
+# all and by variant.
 launches = 0
+launches_by_variant = {"wgmma": 0, "direct": 0, "fma": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ENTRY = {torch.float32: "reflect_conv3x3_f32",
-          torch.bfloat16: "reflect_conv3x3_bf16"}
+# (variant, dtype) -> (source csrc/<name>.cu, C entry point)
+_ENTRY = {
+    ("wgmma", torch.bfloat16): ("reflect_conv3x3_wgmma",
+                                "reflect_conv3x3_wgmma_bf16"),
+    ("direct", torch.bfloat16): ("reflect_conv3x3",
+                                 "reflect_conv3x3_direct_bf16"),
+    ("direct", torch.float32): ("reflect_conv3x3",
+                                "reflect_conv3x3_direct_f32"),
+    ("fma", torch.float32): ("reflect_conv3x3", "reflect_conv3x3_fma_f32"),
+}
+SOURCES = tuple(dict.fromkeys(src for src, _ in _ENTRY.values()))
+
+
+def _variant(C: int, dtype: torch.dtype) -> str:
+    """The kernel that takes an input of C channels of this dtype:
+    ``"wgmma"`` for bf16 with C % 8 == 0 and C >= 16, ``"fma"`` for f32
+    with C >= 16, ``"direct"`` for the rest (C < 16, bf16 with C % 8)."""
+    if C >= 16 and dtype == torch.bfloat16 and C % 8 == 0:
+        return "wgmma"
+    if C >= 16 and dtype == torch.float32:
+        return "fma"
+    return "direct"
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for k in launches_by_variant:
+        launches_by_variant[k] = 0
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
@@ -95,13 +137,15 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     global launches
     from . import _cuda_build
 
-    lib = _cuda_build.load("reflect_conv3x3")
-    fn = getattr(lib, _ENTRY[x.dtype])
+    B, H, W, C = x.shape
+    Cout = w.shape[3]
+    variant = _variant(C, x.dtype)
+    source, entry = _ENTRY[variant, x.dtype]
+    libs = _cuda_build.load_all(SOURCES)
+    fn = getattr(libs[source], entry)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    B, H, W, C = x.shape
-    Cout = w.shape[3]
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -110,11 +154,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  B, H, W, C, Cout, int(relu),
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
+        lib = libs["reflect_conv3x3"]
         lib.reflect_conv3x3_error_string.restype = ctypes.c_char_p
         lib.reflect_conv3x3_error_string.argtypes = [ctypes.c_int]
         msg = lib.reflect_conv3x3_error_string(err).decode()
-        raise RuntimeError(f"B1 launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(
+            f"B1 {variant} launch failed: CUDA error {err} ({msg})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out
 
 
