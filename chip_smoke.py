@@ -7,9 +7,15 @@ It drives the port's paths as a user would call them and holds every
 kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit; TF32 off.
-2. kernel B2 (the fused WS attack, Triton) against its plain version, for
-   KB/AVG/AVG9/"1" x weighted {0, 1, -1}, at the shapes the paths give it
-   (B=8 and B=128 at 512x512) and at ragged shapes.
+2. the nvcc build of every kernel source in parallel (B1's two, B2's
+   one), with ptxas' registers, shared memory and spills for every
+   kernel; then kernel B2 (the fused WS attack, CUDA C++) against its
+   plain version, for KB/AVG/AVG9/"1" x weighted {0, 1, -1}, at the shapes
+   the paths give it (B=8 and B=128 at 512x512), at ragged shapes (widths
+   15, 16, 17, 130, 257; fewer interior rows than a cluster has blocks;
+   B=1; a base pointer not 16-byte aligned), with one launch a call, two
+   calls bitwise equal, and on the last 4 images of an input of more than
+   2^31 bytes (8200x512x512).
 3. the filter-attack path: ``attack_sweep`` with KB and KB-w over seeded
    smooth covers and LSB-replacement stego (alpha 0.4), with the launch
    count of B2 read around it, against the plain path (``ws_attack``).
@@ -18,9 +24,8 @@ kernel against its plain PyTorch version:
    bf16 ``UNetWSServer`` (``predict``, ``predict_many``,
    ``measure_latency``).
 5. kernel B1 (the reflect-padded 3x3 conv, CUDA C++, three variants:
-   ``wgmma``, ``direct``, ``fma``): the nvcc build of its two sources in
-   parallel, with ptxas' registers, shared memory and spills for every
-   kernel; then B1 against its plain version at the 10 ``unet_2`` layer
+   ``wgmma``, ``direct``, ``fma``; built in phase 2) against its plain
+   version at the 10 ``unet_2`` layer
    shapes at 512x512 (B=2), f32 and bf16 (bf16 twice, to catch a race),
    ReLU on and off, at each variant's edge shapes (C = 16, 24, 48, 80;
    Cout = 3, 7, 8, 130, 192; W = 29 and 130; H = W = 2; bf16 C = 130 and
@@ -33,14 +38,16 @@ kernel against its plain PyTorch version:
    on it; the saliency gradient through B1 against the cuDNN route.
 7. times: B2 and its plain version at B=128 and B=8, 512x512, with the
    bound (device time from CUDA-graph replay, and B2's time per call when
-   launched from Python); B1 per layer shape at B=32, 512x512, bf16 and
+   launched from Python), and a CUDA-graph replay of B2 bitwise equal to
+   its eager call; B1 per layer shape at B=32, 512x512, bf16 and
    f32, by variant, beside its bound, its plain version and cuDNN's
    reflect-pad conv in channels-last and in the model's own NCHW layout;
    U-Net batch throughput at B=32 in bf16 and f32 for ``fast_conv`` in
    {False, "borderfix", True}.
 8. where the time goes: torch.profiler over the U-Net batch step (each
-   ``fast_conv`` route), the serving step and the attack sweep (device
-   busy share, top kernels).
+   ``fast_conv`` route), the serving step and the attack sweep, from numpy
+   batches (pinned uploads) and from CPU tensors (pageable uploads), with
+   the device busy share and the top kernels and copies.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -112,11 +119,14 @@ def ptxas_lines(log: str) -> list:
     (demangled by hand), its registers, shared memory and spills."""
     names = {"ILi128EE": "<128>", "ILi64EE": "<64>",
              "I13__nv_bfloat16EE": "<bf16>", "IfEE": "<f32>"}
+    names.update({f"ILi{f}ELi{w}EE": f"<{FILTERS[f]}, weighted={wt}>"
+                  for f in range(4) for w, wt in enumerate(WEIGHTS)})
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?"
-                      r"(wgmma_kernel|direct_kernel|fma_kernel)(I\w+?EE)?",
-                      line)
+                      r"(wgmma_kernel|direct_kernel|fma_kernel|ws_kernel|"
+                      r"recip_kernel)"
+                      r"(I\w+?EE)?", line)
         if m:
             name = m.group(1) + names.get(m.group(2) or "", "")
         elif name and ("spill" in line or "registers" in line):
@@ -223,6 +233,24 @@ def graph_ms(fn, inputs, reps: int = 5, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+def graph_output(fn, x: torch.Tensor) -> torch.Tensor:
+    """The output of ``fn(x)`` captured once in a CUDA graph and replayed
+    (after a warm-up on a side stream, as ``graph_ms``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    got = out.clone()
+    del graph
+    return got
+
+
 def device_profile(fn, steps: int, top: int = 6) -> dict:
     """Run ``fn`` ``steps`` times under torch.profiler: host wall time and
     device busy time per step (sum of the card's kernel and copy events,
@@ -250,6 +278,9 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
             "busy_share": busy / wall_ms if by_name else None,
             "layout_ms": {pat: sum(ms for n, ms in by_name.items()
                                    if pat in n) for pat in LAYOUT_KERNELS},
+            "copy_ms": {pat: sum(ms for n, ms in by_name.items()
+                                 if "Memcpy" in n and pat in n)
+                        for pat in ("Pageable", "Pinned")},
             "top": [[n[:70], ms, ms / busy]
                     for n, ms in sorted(by_name.items(),
                                         key=lambda kv: -kv[1])[:top]]}
@@ -284,32 +315,77 @@ def main() -> int:
     disable_tf32()
     t = phase(1, "device", t)
 
-    # ---- 2. B2 against its plain version on the card
+    # ---- 2. build every kernel source; B2 against its plain version
+    t_build = time.perf_counter()
+    _cuda_build.load_all(_cuda_build.SOURCES)
+    print(f"kernel build (nvcc, sm_90a, {len(_cuda_build.SOURCES)} sources "
+          f"in parallel): {time.perf_counter() - t_build:.1f} s")
+    for src in _cuda_build.SOURCES:
+        build = _cuda_build.build_info(src)
+        print(f"  csrc/{src}.cu: nvcc {build['seconds']:.1f} s")
+        for line in ptxas_lines(build["log"]):
+            print("  ptxas: " + line)
     covers = smooth_covers(128, 512, seed=1)
     mixed = covers.copy()
     mixed[1::2] = lsb_replace(covers[1::2], ALPHA, seed=2)
     rng = np.random.default_rng(3)
     mixed[::7] = rng.integers(0, 256, mixed[::7].shape, dtype=np.uint8)
     x128 = torch.from_numpy(mixed).to(dev)
-    shapes = {"128x512x512": x128, "8x512x512": x128[:8].contiguous()}
-    for shape in [(3, 37, 53), (3, 3, 3), (2, 5, 130), (2, 130, 257)]:
+    shapes = {"128x512x512": x128, "8x512x512": x128[:8].contiguous(),
+              "1x512x512": x128[5:6].contiguous()}
+    # ragged widths, fewer interior rows than a cluster has blocks, and
+    # W % 16 != 0 (ragged band ends)
+    for shape in [(3, 37, 53), (3, 3, 3), (2, 5, 130), (2, 130, 257),
+                  (2, 9, 15), (2, 9, 16), (2, 9, 17), (1, 5, 130),
+                  (2, 20, 130), (2, 3, 3)]:
         shapes["x".join(map(str, shape))] = torch.from_numpy(
             rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    # a base pointer 1,961 bytes into its storage (not 16-byte aligned)
+    shapes["(4x37x53)[1:]"] = torch.from_numpy(
+        rng.integers(0, 256, (4, 37, 53), dtype=np.uint8)).to(dev)[1:]
     max_err = 0.0
     for kname in FILTERS:
         for w in WEIGHTS:
             for shape, x in shapes.items():
+                fused_ws.reset_launches()
                 got = fused_ws.ws_attack_fused(x, kname, w)
+                check(fused_ws.launches == 1,
+                      f"B2 {kname} weighted={w} {shape}: "
+                      f"{fused_ws.launches} launches")
+                again = fused_ws.ws_attack_fused(x, kname, w)
                 want = fused_ws.ws_attack_fused_plain(x, kname, w)
                 torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"B2 {kname} weighted={w} {shape}: two calls differ")
                 err = float((got - want).abs().max())
                 max_err = max(max_err, err)
                 check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
                       f"B2 {kname} weighted={w} {shape}: max |err| {err}")
     print(f"B2 = plain at rtol {RTOL}, atol {ATOL} for {len(FILTERS)} "
           f"filters x {len(WEIGHTS)} weightings x {len(shapes)} shapes "
-          f"({', '.join(shapes)}); max |err| {max_err:.3e}")
-    t = phase(2, "B2 against its plain version", t)
+          f"({', '.join(shapes)}); one launch a call; two calls bitwise "
+          f"equal; max |err| {max_err:.3e}")
+    # 64-bit offsets: 8200x512x512 is 2.15e9 bytes; the last 4 images lie
+    # beyond 2^31 bytes and are compared on their own slice
+    g = torch.Generator(device="cuda").manual_seed(14)
+    big = torch.randint(0, 256, (8200, 512, 512), dtype=torch.uint8,
+                        device=dev, generator=g)
+    big[-4:] = x128[:4]
+    for kname in FILTERS:
+        for w in WEIGHTS:
+            got = fused_ws.ws_attack_fused(big, kname, w)[-4:]
+            want = fused_ws.ws_attack_fused_plain(big[-4:], kname, w)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"B2 {kname} weighted={w} 8200x512x512 (last 4): "
+                  f"max |err| {err}")
+    del big
+    torch.cuda.empty_cache()
+    print(f"B2 = plain on the last 4 images of 8200x512x512 "
+          f"({8200 * 512 * 512:,} bytes) for every filter and weighting")
+    t = phase(2, "kernel build; B2 against its plain version", t)
 
     # ---- 3. the filter-attack path
     cov8 = smooth_covers(32, 512, seed=4)
@@ -397,16 +473,7 @@ def main() -> int:
           "B1 ran on the fast_conv=False U-Net path")
     t = phase(4, "U-Net serving path", t)
 
-    # ---- 5. B1: build, then against its plain version on the card
-    t_build = time.perf_counter()
-    _cuda_build.load_all(fused_reflect_conv.SOURCES)
-    print(f"B1 build (nvcc, sm_90a, {len(fused_reflect_conv.SOURCES)} "
-          f"sources in parallel): {time.perf_counter() - t_build:.1f} s")
-    for src in fused_reflect_conv.SOURCES:
-        build = _cuda_build.build_info(src)
-        print(f"  csrc/{src}.cu: nvcc {build['seconds']:.1f} s")
-        for line in ptxas_lines(build["log"]):
-            print("  ptxas: " + line)
+    # ---- 5. B1 against its plain version on the card (built in phase 2)
     b1_err_max = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_cases = 0
 
@@ -471,7 +538,7 @@ def main() -> int:
           f"{b1_err_max[torch.bfloat16]:.3e} (1 bf16 ulp + 1e-4), "
           "against the plain version in f32 on the same inputs; launches "
           f"by variant {json.dumps(fused_reflect_conv.launches_by_variant)}")
-    t = phase(5, "B1 build and against its plain version", t)
+    t = phase(5, "B1 against its plain version", t)
 
     # ---- 6. the fast-conv U-Net path (B1's main path)
     # B1's launches on this path, by variant: the counts are read and reset
@@ -566,6 +633,10 @@ def main() -> int:
 
                 ms = graph_ms(kernel, bufs)
                 eager_ms = cuda_ms(kernel, bufs)
+                replayed = graph_output(kernel, bufs[0])
+                check(torch.equal(replayed, kernel(bufs[0])),
+                      f"B2 {kname} weighted={w} B={B}: graph replay != "
+                      "eager call")
                 plain_ms = graph_ms(plain, bufs, reps=3, iters=4)
                 cost = fused_ws.ws_fused_cost(B, 512, 512, kname, w)
                 t_bytes = 1e3 * cost["bytes"] / HBM_BYTES_PER_S
@@ -579,9 +650,11 @@ def main() -> int:
                 print("B2 time: " + json.dumps(row))
                 if B == 128 and kname == "KB" and w == 0:
                     b2_entry = row
-    print("B2 ms and plain_ms: device time of one call, from CUDA-graph "
-          "replay; eager_ms: one call launched from Python (host-inclusive, "
-          "what attack_sweep pays a batch). Inputs rotate over "
+    print("B2: a CUDA-graph replay equals the eager call bitwise in each "
+          "of the 24 cases. ms and plain_ms: device time of one call, from "
+          "CUDA-graph replay; eager_ms: one call launched from Python "
+          "(host-inclusive, what attack_sweep pays a batch). Inputs rotate "
+          "over "
           "4 x 33.5 MB at B=128 (beyond the 50 MB L2); at B=8 one 2 MB "
           "batch stays in L2, as a freshly uploaded batch would.")
     print("B2 bound = max(bytes / 3.35e12 B/s, f32 ops / 67e12 op/s); "
@@ -709,8 +782,11 @@ def main() -> int:
         ("bf16 serving, b1", lambda: server.predict(x1), 20),
         ("bf16 serving, b1, fast_conv=True",
          lambda: fast_server.predict(x1), 5),
-        ("attack_sweep KB, 4 batches of 8",
-         lambda: attack_sweep(cover_batches, kernel_name="KB"), 5)]
+        ("attack_sweep KB, 4 numpy batches of 8 (pinned uploads)",
+         lambda: attack_sweep(cover_batches, kernel_name="KB"), 5),
+        ("attack_sweep KB, 4 CPU-tensor batches of 8 (pageable uploads)",
+         lambda: attack_sweep([torch.from_numpy(b) for b in cover_batches],
+                              kernel_name="KB"), 5)]
     for label, fn, steps in steps_of:
         prof = device_profile(fn, steps)
         if prof["busy_share"] is None:
@@ -721,17 +797,30 @@ def main() -> int:
             check(not any(prof["layout_ms"].values()),
                   f"{label}: a reflect pad or layout transpose kernel ran")
     del steps_of, m, x32
+    # the attack sweep's wall time without the profiler, by upload route
+    for label, batches in (
+            ("numpy batches (pinned uploads)", cover_batches),
+            ("CPU tensors (pageable uploads)",
+             [torch.from_numpy(b) for b in cover_batches])):
+        attack_sweep(batches, kernel_name="KB")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            attack_sweep(batches, kernel_name="KB")
+        print(f"attack_sweep KB, 4 batches of 8x512x512 from {label}: "
+              f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms a sweep "
+              "(host clock, no profiler)")
     t = phase(8, "where the time goes", t)
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
-        "route": "triton",
-        "source": "wsunet_tpu_torch/ops/_fused_ws_triton.py",
-        "replaces": "wsunet_tpu/ops/pallas_ws.py:88",
+        "route": "cuda",
+        "source": "wsunet_tpu_torch/csrc/ws_fused.cu",
+        "replaces": "wsunet_tpu/ops/pallas_ws.py:90",
         "launches": attack_launches,
         "max_abs_err": max_err,
         "ms": b2_entry["ms"],
+        "eager_ms": b2_entry["eager_ms"],
         "plain_ms": b2_entry["plain_ms"],
         "bound_ms": b2_entry["bound_ms"],
         "bound_by": b2_entry["bound_by"],

@@ -28,8 +28,8 @@ RTOL, ATOL = 1e-4, 1e-6
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the Triton and CUDA kernels have "
-                    "no CPU mode)")
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode)")
     return torch.device("cuda")
 
 
@@ -146,10 +146,68 @@ def _u8(shape, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 64, 64), (3, 37, 53), (3, 3, 3),
-                                   (2, 5, 130), (128, 512, 512)])
+@pytest.mark.parametrize("shape", [
+    (3, 64, 64), (3, 37, 53), (3, 3, 3), (2, 5, 130), (128, 512, 512),
+    # widths against the 4-column slots and 16-byte band ends; fewer
+    # interior rows than a cluster has blocks; B = 1
+    (2, 9, 15), (2, 9, 16), (2, 9, 17), (2, 20, 130), (2, 19, 257),
+    (2, 3, 3), (1, 5, 130), (1, 512, 512), (1, 37, 53)])
 def test_kernel_matches_plain(cuda, shape):
     x = torch.from_numpy(_u8(shape, seed=3)).to(cuda)
+    _b2_matches_plain(x)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_an_unaligned_base(cuda):
+    """x[1:] of a (4, 37, 53) batch starts 1,961 bytes into its storage,
+    so no band starts on a 16-byte boundary."""
+    x = torch.from_numpy(_u8((4, 37, 53), seed=4)).to(cuda)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _b2_matches_plain(x)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_and_graph_safe(cuda):
+    """Two calls, and a CUDA-graph replay, give bitwise-equal results."""
+    x = torch.from_numpy(_u8((16, 256, 256), seed=9)).to(cuda)
+    for name in NAMED_FILTERS_2D:
+        for w in (0, 1, -1):
+            eager = fused_ws.ws_attack_fused(x, name, w)
+            assert torch.equal(eager, fused_ws.ws_attack_fused(x, name, w))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fused_ws.ws_attack_fused(x, name, w)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fused_ws.ws_attack_fused(x, name, w)
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, eager), (name, w)
+
+
+@pytest.mark.cuda
+def test_reciprocal_is_ieee_division(cuda):
+    """B2's w = 1/(5 + var) skips the IEEE division's general-case code; at
+    every value 5 + var takes (var = k/64, 0 <= k <= 1,040,400) it equals
+    the IEEE quotient 1/d, bit for bit."""
+    from wsunet_tpu_torch.ops import _cuda_build
+
+    lib = fused_ws._bind_types(
+        _cuda_build.load_all(_cuda_build.SOURCES)[fused_ws.SOURCE])
+    d_np = (5.0 + np.arange(1_040_401, dtype=np.float64) / 64).astype(
+        np.float32)
+    d = torch.from_numpy(d_np).to(cuda)
+    out = torch.empty_like(d)
+    assert lib.ws_fused_recip(d.data_ptr(), out.data_ptr(), d.numel(),
+                              torch.cuda.current_stream().cuda_stream) == 0
+    want = np.float32(1.0) / d_np
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+def _b2_matches_plain(x):
     for name in NAMED_FILTERS_2D:
         for w in (0, 1, -1):
             fused_ws.reset_launches()
@@ -167,6 +225,24 @@ def test_kernel_rejects_non_contiguous(cuda):
     x = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         fused_ws.ws_attack_fused(x.transpose(1, 2), "KB")
+
+
+@pytest.mark.cuda
+def test_attack_sweep_pinned_uploads_keep_results_and_order(cuda):
+    """numpy batches go through two reused pinned buffers: five batches of
+    three sizes (a buffer grows, then is reused) give, in order, what the
+    plain path gives on each batch uploaded on its own."""
+    batches = [_u8(s, seed=i) for i, s in enumerate(
+        [(8, 64, 64), (3, 64, 64), (8, 96, 96), (8, 64, 64), (2, 64, 64)])]
+    got = attack_sweep(batches, kernel_name="AVG", weighted=-1)
+    want = torch.cat([ws_attack(torch.from_numpy(b).to(cuda),
+                                pixel_kernel=NAMED_FILTERS_2D["AVG"],
+                                weighted=-1) for b in batches])
+    assert got.shape == (29,)
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    tensors = attack_sweep([torch.from_numpy(b) for b in batches],
+                           kernel_name="AVG", weighted=-1)
+    np.testing.assert_array_equal(got, tensors)
 
 
 @pytest.mark.cuda

@@ -13,12 +13,14 @@ counterpart there (``tests/test_torch_*.py``).  The slices so far cover:
 - the U-Net's saliency gradient (``analyses.saliency``), through that
   kernel's forward when ``fast_conv=True``;
 - the filter WS attack (``ws-eval`` with KB/AVG/AVG9 and the ``-w``
-  weighting), which on CUDA runs the hand-written Triton kernel
-  ``ops.fused_ws`` (the port of the Pallas kernel ``ops/pallas_ws.py``).
+  weighting), which on CUDA runs the hand-written CUDA kernel
+  ``ops.fused_ws`` (the port of the Pallas kernel ``ops/pallas_ws.py``),
+  built with nvcc at first use with the other kernels' sources.
 
 Importing the package needs only torch and numpy: no JAX, no triton, no
-pandas/PIL.  Entry points run on CUDA unless the caller passes
-``device="cpu"``, and raise when CUDA is missing (``_device``).
+pandas/PIL; the kernels need nvcc on the card's machine (``csrc/``).
+Entry points run on CUDA unless the caller passes ``device="cpu"``, and
+raise when CUDA is missing (``_device``).
 """
 
 __version__ = "0.1.0"

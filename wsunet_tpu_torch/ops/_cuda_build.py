@@ -1,8 +1,9 @@
 """Build the port's CUDA C++ kernels with ``nvcc`` and load them with ctypes.
 
-A source ``wsunet_tpu_torch/csrc/<name>.cu`` with a plain C interface (no
-PyTorch header) is compiled at its first use (several sources at once in
-parallel, ``load_all``) into
+Every source of the port, ``wsunet_tpu_torch/csrc/<name>.cu`` for each
+name in ``SOURCES``, has a plain C interface (no PyTorch header).  The
+first use of any kernel builds them all at once, one nvcc a source
+started together (``load_all(SOURCES)``), into
 ``build/kernels/lib<name>_<hash>.so`` under the repository root, where the
 hash covers the source and the flags, so an edited source never loads a
 stale library.  ``nvcc`` is taken from ``$CUDA_HOME/bin``, else
@@ -23,6 +24,9 @@ import subprocess
 import threading
 import time
 
+# the kernels' sources: B1 (reflect_conv3x3: variants direct and fma;
+# reflect_conv3x3_wgmma: variant wgmma) and B2 (ws_fused)
+SOURCES = ("reflect_conv3x3", "reflect_conv3x3_wgmma", "ws_fused")
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -10,11 +10,11 @@ x NHWC ``[B, H, W, C]`` contiguous, w HWIO ``[3, 3, C, Cout]``, b
 ``[Cout]``, all f32 or all bf16; the output is NHWC in x's dtype.
 
 - ``conv3x3_reflect_fused`` is the wrapper.  A CUDA tensor goes to one
-  of three hand-written CUDA kernels (built with nvcc at first use,
-  ``_cuda_build``), a CPU tensor to the plain version; anything else
-  raises.  On CUDA there is no fallback: unlike the Pallas kernel's
-  ``_supported`` gate, the kernels together take every shape (C_in 1 and
-  up, any H, W >= 2, any batch).
+  of three hand-written CUDA kernels (built with nvcc at first use, with
+  B2's source, ``_cuda_build``), a CPU tensor to the plain version;
+  anything else raises.  On CUDA there is no fallback: unlike the Pallas
+  kernel's ``_supported`` gate, the kernels together take every shape
+  (C_in 1 and up, any H, W >= 2, any batch).
 - ``conv3x3_reflect_fused_plain`` is the port of ``_reference``: reflect
   pad, VALID conv, + b, ReLU.
 - The gradient is a ``torch.autograd.Function`` whose forward is the
@@ -141,7 +141,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Cout = w.shape[3]
     variant = _variant(C, x.dtype)
     source, entry = _ENTRY[variant, x.dtype]
-    libs = _cuda_build.load_all(SOURCES)
+    libs = _cuda_build.load_all(_cuda_build.SOURCES)
     fn = getattr(libs[source], entry)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 5 + [ctypes.c_void_p]
