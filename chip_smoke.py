@@ -16,7 +16,7 @@ kernel against its plain PyTorch version:
    B=1; a base pointer not 16-byte aligned), with one launch a call, two
    calls bitwise equal, and on the last 4 images of an input of more than
    2^31 bytes (8200x512x512).
-3. the filter-attack path: ``attack_sweep`` with KB and KB-w over seeded
+3. the filter-attack path: ``attack_batches`` with KB and KB-w over seeded
    smooth covers and LSB-replacement stego (alpha 0.4), with the launch
    count of B2 read around it, against the plain path (``ws_attack``).
 4. the U-Net serving path: ``unet_2`` at full width on seeded weights,
@@ -48,6 +48,22 @@ kernel against its plain PyTorch version:
    ``fast_conv`` route), the serving step and the attack sweep, from numpy
    batches (pinned uploads) and from CPU tensors (pageable uploads), with
    the device busy share and the top kernels and copies.
+9. the trained-weights detection path, on ``weights/golden/p128_lsbr.npz``
+   (64 covers of ``data_ablation/p128`` and their LSBr stego at alpha 0.1
+   and 0.01, with the JAX package's numbers on them): the trained LSBR
+   ``unet_2`` loaded with ``load_pretrained_unet`` from ``weights/unet``
+   on each ``fast_conv`` route; its f32 beta_hat and l1 (B1's launches
+   counted) and KB, KB-w (B2, one launch a batch) and KB-sca (plain) held
+   against JAX's; every B1 launch of the phase's forwards held against
+   B1's plain version on the same activations (phase 5's bounds); bf16
+   on B1 against the card's f32, within the JAX package's own bf16-to-f32
+   distance on the same images; ``ws-eval``'s U-Net estimator on B1
+   against cuDNN; the catalog pipeline (``data.pipeline.sweep_batches``)
+   over the covers written as ``.npy`` files, one corrupt, through the
+   device cache, B1 and B2, with NaN rows; AUC, P_E, wAUC and P_MD@5%FP
+   from ``detect.roc_stats`` against JAX's; and a probe of the native PNG
+   decoder (``io.native``), bitwise against the golden covers where it
+   builds.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -57,7 +73,9 @@ prints no result.
 
 import copy
 import json
+import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -76,6 +94,11 @@ F32_OPS_PER_S = 67e12       # f32 outside the tensor cores, same source
 BF16_OPS_PER_S = 989e12     # bf16 tensor cores, dense, same source
 ALPHA = 0.4
 FAST_CONV = [False, "borderfix", True]
+REPO = pathlib.Path(__file__).resolve().parent
+GOLDEN = REPO / "weights" / "golden" / "p128_lsbr.npz"
+# KB-sca against JAX (tests/test_torch_hill_sca.py): sums in another order,
+# and a pixel at the cost quantile may fall on the other side of it
+SCA_RTOL, SCA_ATOL = 1e-4, 1e-5
 # kernels that pad or change the layout around the convs (reflect pad,
 # cuDNN's NCHW<->NHWC transposes)
 LAYOUT_KERNELS = ("reflection_pad", "nchwToNhwc", "nhwcToNchw")
@@ -286,6 +309,288 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
                                         key=lambda kv: -kv[1])[:top]]}
 
 
+def detection_path(smi_line: str) -> dict:
+    """Phase 9: the trained LSBR unet_2 and the filter attacks on the
+    golden images, held against the JAX package's numbers; B1's and B2's
+    launches on this path."""
+    from wsunet_tpu_torch.data import pipeline
+    from wsunet_tpu_torch.detect import roc_stats
+    from wsunet_tpu_torch.io import native
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.ws import (attack_batches, get_unet_estimator,
+                                     load_pretrained_unet,
+                                     parse_filter_model, predict_batch)
+
+    gold = np.load(GOLDEN)
+    run = str(gold["run"])
+    pixels = gold["pixels"]                     # [set, 64, 128, 128] uint8
+    sets, alphas = list(gold["sets"]), [float(a) for a in gold["alphas"]]
+    n_img = pixels.shape[1]
+    # the eval sweeps' batch of 8: the batches of each set in turn
+    batches = [pixels[s, i:i + 8] for s in range(len(sets))
+               for i in range(0, n_img, 8)]
+    per = n_img // 8                            # batches a set
+
+    def per_set(values) -> np.ndarray:
+        return np.concatenate(values).reshape(len(sets), n_img)
+
+    # 1. the trained model, through the entry point, on each conv route
+    lsbr = REPO / "weights" / "unet" / "LSBR"
+    models = {fc: load_pretrained_unet(lsbr, run, fast_conv=fc)
+              for fc in (False, True)}
+    config = models[False][1]
+    n_params = sum(p.numel() for p in models[False][0].parameters())
+    print(f"trained {config['network']} {run}: {n_params:,} parameters, "
+          f"on {next(models[False][0].parameters()).device}")
+    check(n_params == 1_861_697, f"trained unet_2 has {n_params} parameters")
+
+    # every B1 launch of this phase's forwards is held against B1's plain
+    # version in f32 on the same activations, at phase 5's bounds
+    b1_calls = []
+    launch = fused_reflect_conv._launch
+
+    def checked_launch(x, w, b, relu):
+        out = launch(x, w, b, relu)
+        want = fused_reflect_conv.conv3x3_reflect_fused_plain(
+            x.float(), w.float(), b.float(), relu)
+        err, ok = b1_err(out, want)
+        b1_calls.append((x.dtype, err))
+        check(ok, f"B1 on the trained unet_2, {str(x.dtype)[6:]} "
+                  f"{tuple(x.shape)}->{w.shape[3]}: max |err| {err}")
+        return out
+
+    root = REPO / "build" / "smoke_p128"
+    shutil.rmtree(root, ignore_errors=True)
+    names = [f"images/{i:02d}.npy" for i in range(n_img)]
+    bad = 2
+    keep = np.arange(n_img) != bad
+    fused_reflect_conv._launch = checked_launch
+    try:
+        # 2. the card against JAX: f32 U-Net on both routes
+        beta, l1 = {}, {}
+        b1_launches = 0
+        for fc in (False, True):
+            fused_reflect_conv.reset_launches()
+            out = [predict_batch(models[fc][0], b) for b in batches]
+            counts = dict(fused_reflect_conv.launches_by_variant)
+            b1_launches += sum(counts.values())
+            want = {"wgmma": 0, "direct": len(batches),
+                    "fma": 9 * len(batches)} \
+                if fc else dict.fromkeys(counts, 0)
+            check(counts == want, f"B1 launches, f32 fast_conv={fc}: "
+                                  f"{counts}")
+            beta[fc] = per_set([o[0].cpu().numpy() for o in out])
+            l1[fc] = per_set([o[1].cpu().numpy() for o in out])
+            d_beta = float(np.abs(beta[fc] - gold["beta/UNet"]).max())
+            d_l1 = float((np.abs(l1[fc] - gold["l1"]) / gold["l1"]).max())
+            print(f"trained unet_2 f32, fast_conv={fc}, {len(batches)} "
+                  f"batches of 8x128x128 against JAX: max |d beta| "
+                  f"{d_beta:.3e} (<= 1e-5), max rel d l1 {d_l1:.3e} "
+                  f"(<= 1e-4); B1 launches {json.dumps(counts)}")
+            check(d_beta <= 1e-5 and d_l1 <= 1e-4,
+                  f"trained unet_2 f32 fast_conv={fc} != JAX")
+        model16, _ = load_pretrained_unet(lsbr, run,
+                                          compute_dtype=torch.bfloat16,
+                                          fast_conv=True)
+        fused_reflect_conv.reset_launches()
+        out = [predict_batch(model16, b) for b in batches]
+        counts = dict(fused_reflect_conv.launches_by_variant)
+        b1_launches += sum(counts.values())
+        check(counts == {"wgmma": 9 * len(batches), "direct": len(batches),
+                         "fma": 0}, f"B1 launches, bf16: {counts}")
+        b16 = per_set([o[0].cpu().numpy() for o in out])
+        l16 = per_set([o[1].cpu().numpy() for o in out])
+        del model16
+        # the U-Net estimator of ws-eval --models UNet, through B1 and
+        # through cuDNN
+        est = {}
+        for fc in (False, True):
+            predictor = get_unet_estimator(lsbr, run, fast_conv=fc)
+            fused_reflect_conv.reset_launches()
+            est[fc] = per_set([attack_batches(
+                batches[s * per:(s + 1) * per], pixel_estimator=predictor)
+                for s in range(len(sets))])
+            n = fused_reflect_conv.launches
+            b1_launches += n
+            check(n == (len(UNET2_CONVS) * len(batches) if fc else 0),
+                  f"U-Net estimator fast_conv={fc}: {n} B1 launches")
+        d_est = float(np.abs(est[True] - est[False]).max())
+        # each route is f32 with sums in its own order, as against JAX
+        print(f"ws-eval's U-Net estimator (get_unet_estimator, "
+              f"attack_batches), fast_conv=True against False on the card: "
+              f"max |d beta| {d_est:.3e} (<= 2e-5)")
+        check(d_est <= 2e-5, "U-Net estimator on B1 != on cuDNN")
+
+        # the catalog pipeline on the card, through image files: the
+        # covers as .npy files (the card has no PNG decoder), one corrupt;
+        # the U-Net sweep twice, the second from the device cache
+        (root / "images").mkdir(parents=True)
+        for nm, img in zip(names, pixels[0]):
+            np.save(root / nm, img)
+        (root / names[bad]).write_bytes(b"not an array")
+        pipeline.clear_decode_cache()
+        fused_reflect_conv.reset_launches()
+        sweeps = [pipeline.sweep_batches(
+            root, names, lambda px: predict_batch(models[True][0], px), 8,
+            device_cache=True, reader=np.load) for _ in range(2)]
+        n = fused_reflect_conv.launches
+        b1_launches += n
+        check(n == 2 * per * len(UNET2_CONVS),
+              f"catalog U-Net sweeps: {n} B1 launches")
+        cached = list(pipeline._DEVICE_CACHE.values())
+        check(len(cached) == per - 1 and
+              all(t.is_cuda for t, _ in cached),
+              f"device cache holds {len(cached)} batches, not {per - 1}")
+        check(np.array_equal(sweeps[0], sweeps[1], equal_nan=True),
+              "second U-Net sweep (device cache) != the first")
+        passes = list(pipeline.iterate_batches(
+            root, names, 8, reader=np.load, cache=True, device_cache=True))
+        for i, batch in enumerate(passes):
+            want = pixels[0, 8 * i:8 * i + 8].copy()
+            if i == bad // 8:
+                check(isinstance(batch.pixels, np.ndarray) and
+                      not batch.mask[bad % 8] and batch.mask.sum() == 7,
+                      "the batch with the corrupt file was cached")
+                want[bad % 8] = 0
+                got = batch.pixels
+            else:
+                check(isinstance(batch.pixels, torch.Tensor) and
+                      batch.pixels.is_cuda and batch.mask.all(),
+                      f"batch {i} did not come from the device cache")
+                got = batch.pixels.cpu().numpy()
+            check(np.array_equal(got, want),
+                  f"catalog batch {i} != the golden pixels")
+    finally:
+        fused_reflect_conv._launch = launch
+    ub, ul = sweeps[0][:, 0], sweeps[0][:, 1]
+    d_beta = float(np.abs(ub[keep] - gold["beta/UNet"][0][keep]).max())
+    d_l1 = float((np.abs(ul[keep] - gold["l1"][0][keep]) /
+                  gold["l1"][0][keep]).max())
+    print(f"catalog U-Net sweep on B1 (sweep_batches, {n_img} covers as "
+          f"files, one corrupt, twice; the second pass from "
+          f"{len(cached)} device-cached batches): NaN row for the corrupt "
+          f"file; against JAX max |d beta| {d_beta:.3e} (<= 1e-5), max "
+          f"rel d l1 {d_l1:.3e} (<= 1e-4)")
+    check(np.isnan(sweeps[0][bad]).all() and
+          np.isfinite(sweeps[0][keep]).all(),
+          "catalog U-Net sweep: NaN rows wrong")
+    check(d_beta <= 1e-5 and d_l1 <= 1e-4, "catalog U-Net sweep != JAX")
+    by_dtype = {dt: [e for d, e in b1_calls if d == dt]
+                for dt in (torch.float32, torch.bfloat16)}
+    print(f"B1 = plain on every launch of the trained unet_2 forwards: "
+          f"{len(by_dtype[torch.float32])} f32 launches, max |err| "
+          f"{max(by_dtype[torch.float32]):.3e} (rtol 1e-4, atol 1e-4); "
+          f"{len(by_dtype[torch.bfloat16])} bf16 launches, max |err| "
+          f"{max(by_dtype[torch.bfloat16]):.3e} (1 bf16 ulp + 1e-4)")
+    check(len(b1_calls) == b1_launches, "a B1 launch escaped the check")
+    d16 = float(np.abs(b16 - beta[False]).max())
+    dl16 = float(np.abs(l16 - l1[False]).max())
+    # a model-level sanity check (each B1 call is held above): bf16 rounds
+    # the sigmoid output to 8 bits (about one grey level near 255), so
+    # beta_hat moves by more on trained weights at 128x128 than on phase
+    # 4's seeded 512x512 image: the bound is the JAX package's own bf16
+    # against its f32 on these images (l1: phase 4's 0.5)
+    jax_d16 = float(np.abs(gold["bf16/beta"] - gold["beta/UNet"]).max())
+    jax_dl16 = float(np.abs(gold["bf16/l1"] - gold["l1"]).max())
+    print(f"trained unet_2 bf16, fast_conv=True, against the card's f32: "
+          f"max |d beta| {d16:.3e}, max |d l1| {dl16:.3e}; the JAX "
+          f"package's bf16 against its f32 on the same images: "
+          f"{jax_d16:.3e}, {jax_dl16:.3e}; B1 launches {json.dumps(counts)}")
+    check(np.all(np.isfinite(b16)) and d16 <= jax_d16 and dl16 < 0.5,
+          "trained unet_2 bf16 further from f32 than JAX's bf16")
+
+    # the filter attacks: KB and KB-w on B2 (one launch a batch), KB-sca on
+    # the plain path
+    scores = {"UNet": beta[False]}
+    fused_ws.reset_launches()
+    for det in ("KB", "KB-w"):
+        kname, weighted, _ = parse_filter_model(det)
+        before = fused_ws.launches
+        scores[det] = per_set([attack_batches(
+            batches[s * per:(s + 1) * per], kernel_name=kname,
+            weighted=weighted) for s in range(len(sets))])
+        check(fused_ws.launches - before == len(batches),
+              f"{det}: B2 launched {fused_ws.launches - before} times for "
+              f"{len(batches)} batches")
+    before = fused_ws.launches
+    scores["KB-sca"] = per_set([attack_batches(
+        batches[s * per:(s + 1) * per], kernel_name="KB", sca=True)
+        for s in range(len(sets))])
+    check(fused_ws.launches == before, "B2 ran on the -sca path")
+    # the same files through B2, one launch a batch
+    before = fused_ws.launches
+    kb_files = pipeline.sweep_batches(
+        root, names, lambda px: (torch.from_numpy(attack_batches(
+            [px], kernel_name="KB")),), 8, reader=np.load).reshape(-1)
+    check(fused_ws.launches - before == per,
+          f"catalog KB sweep: {fused_ws.launches - before} B2 launches")
+    check(np.isnan(kb_files[bad]) and
+          np.allclose(kb_files[keep], gold["beta/KB"][0][keep], rtol=RTOL,
+                      atol=ATOL),
+          "catalog KB sweep != JAX, or no NaN row for the corrupt file")
+    print(f"catalog KB sweep on B2 ({per} batches from files, one corrupt): "
+          "NaN row for the corrupt file, the rest within rtol 1e-4, "
+          "atol 1e-6 of JAX")
+    pipeline.clear_decode_cache()
+    shutil.rmtree(root)
+    b2_launches = fused_ws.launches
+    for det, (rtol, atol) in (("KB", (RTOL, ATOL)), ("KB-w", (RTOL, ATOL)),
+                              ("KB-sca", (SCA_RTOL, SCA_ATOL))):
+        want = gold[f"beta/{det}"]
+        err = float(np.abs(scores[det] - want).max())
+        print(f"{det} on the card against JAX: max |err| {err:.3e} "
+              f"(rtol {rtol}, atol {atol})")
+        check(np.allclose(scores[det], want, rtol=rtol, atol=atol),
+              f"{det}: card != JAX, max |err| {err}")
+
+    # 3. detection statistics against JAX's
+    stats = list(gold["stats"])
+    bounds = {"auc": 1 / n_img ** 2, "wauc": 1 / n_img ** 2,
+              "p_e": 1 / n_img, "pmd_5fp": 1 / n_img}
+    table = []
+    for a, alpha in enumerate(alphas):
+        y = np.r_[np.zeros(n_img), np.full(n_img, alpha / 2)]
+        for d, det in enumerate(gold["detectors"]):
+            det = str(det)
+            s = sets.index(str(alpha))
+            got = roc_stats(np.clip(np.r_[scores[det][0], scores[det][s]],
+                                    0, None), y)
+            row = {"alpha": alpha, "detector": det}
+            for k, key in enumerate(stats):
+                want = float(gold["roc"][a, d, k])
+                row[key] = float(got[key])
+                row[key + "_jax"] = want
+                if key in bounds:
+                    check(abs(row[key] - want) <= bounds[key] + 1e-12,
+                          f"{det} alpha {alpha}: {key} {row[key]} against "
+                          f"JAX {want} (bound {bounds[key]})")
+            table.append(row)
+    print(f"detection on the card ({smi_line}), 64 covers + 64 LSBr stego "
+          "of data_ablation/p128 per alpha, card (JAX): " + "; ".join(
+              f"{r['detector']} a={r['alpha']}: AUC {r['auc']:.6f} "
+              f"({r['auc_jax']:.6f}) P_E {r['p_e']:.6f} ({r['p_e_jax']:.6f}) "
+              f"wAUC {r['wauc']:.6f} ({r['wauc_jax']:.6f}) PMD5FP "
+              f"{r['pmd_5fp']:.6f} ({r['pmd_5fp_jax']:.6f})" for r in table))
+    print("detection: every AUC and wAUC within 1/4096 of JAX's, P_E and "
+          "P_MD@5%FP within 1/64")
+
+    # 4. the native PNG decoder (host I/O)
+    if native.available():
+        paths = [str(REPO / "data_ablation" / "p128" / str(n))
+                 for n in gold["names"]]
+        decoded = native.decode_gray_batch(paths, threads=8)
+        check(decoded is not None and
+              np.array_equal(np.stack(decoded), pixels[0]),
+              "native decoder != the golden covers")
+        print(f"native decoder: built ({native.library_path().name}); "
+              f"{len(paths)} p128 PNGs bitwise equal to the golden covers")
+    else:
+        first = (native.build_error() or "no error text").splitlines()[0]
+        print(f"native decoder: unavailable ({first})")
+    return {"b1_launches": b1_launches, "b2_launches": b2_launches,
+            "table": table}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -297,7 +602,7 @@ def main() -> int:
                                       fused_reflect_conv, fused_ws,
                                       ws_attack)
     from wsunet_tpu_torch.serve import UNetWSServer, measure_latency
-    from wsunet_tpu_torch.ws import (attack_sweep, parse_filter_model,
+    from wsunet_tpu_torch.ws import (attack_batches, parse_filter_model,
                                      predict_batch)
 
     t_all = t = time.perf_counter()
@@ -398,8 +703,10 @@ def main() -> int:
     for model_name in configs:
         kname, weighted, _ = parse_filter_model(model_name)
         results[model_name] = (
-            attack_sweep(cover_batches, kernel_name=kname, weighted=weighted),
-            attack_sweep(stego_batches, kernel_name=kname, weighted=weighted))
+            attack_batches(cover_batches, kernel_name=kname,
+                           weighted=weighted),
+            attack_batches(stego_batches, kernel_name=kname,
+                           weighted=weighted))
     attack_launches = fused_ws.launches
     want_launches = len(configs) * (len(cover_batches) + len(stego_batches))
     check(attack_launches == want_launches,
@@ -653,7 +960,7 @@ def main() -> int:
     print("B2: a CUDA-graph replay equals the eager call bitwise in each "
           "of the 24 cases. ms and plain_ms: device time of one call, from "
           "CUDA-graph replay; eager_ms: one call launched from Python "
-          "(host-inclusive, what attack_sweep pays a batch). Inputs rotate "
+          "(host-inclusive, what attack_batches pays a batch). Inputs rotate "
           "over "
           "4 x 33.5 MB at B=128 (beyond the 50 MB L2); at B=8 one 2 MB "
           "batch stays in L2, as a freshly uploaded batch would.")
@@ -782,11 +1089,11 @@ def main() -> int:
         ("bf16 serving, b1", lambda: server.predict(x1), 20),
         ("bf16 serving, b1, fast_conv=True",
          lambda: fast_server.predict(x1), 5),
-        ("attack_sweep KB, 4 numpy batches of 8 (pinned uploads)",
-         lambda: attack_sweep(cover_batches, kernel_name="KB"), 5),
-        ("attack_sweep KB, 4 CPU-tensor batches of 8 (pageable uploads)",
-         lambda: attack_sweep([torch.from_numpy(b) for b in cover_batches],
-                              kernel_name="KB"), 5)]
+        ("attack_batches KB, 4 numpy batches of 8 (pinned uploads)",
+         lambda: attack_batches(cover_batches, kernel_name="KB"), 5),
+        ("attack_batches KB, 4 CPU-tensor batches of 8 (pageable uploads)",
+         lambda: attack_batches([torch.from_numpy(b) for b in cover_batches],
+                                kernel_name="KB"), 5)]
     for label, fn, steps in steps_of:
         prof = device_profile(fn, steps)
         if prof["busy_share"] is None:
@@ -802,14 +1109,18 @@ def main() -> int:
             ("numpy batches (pinned uploads)", cover_batches),
             ("CPU tensors (pageable uploads)",
              [torch.from_numpy(b) for b in cover_batches])):
-        attack_sweep(batches, kernel_name="KB")
+        attack_batches(batches, kernel_name="KB")
         t0 = time.perf_counter()
         for _ in range(20):
-            attack_sweep(batches, kernel_name="KB")
-        print(f"attack_sweep KB, 4 batches of 8x512x512 from {label}: "
+            attack_batches(batches, kernel_name="KB")
+        print(f"attack_batches KB, 4 batches of 8x512x512 from {label}: "
               f"{1e3 * (time.perf_counter() - t0) / 20:.3f} ms a sweep "
               "(host clock, no profiler)")
     t = phase(8, "where the time goes", t)
+
+    # ---- 9. the trained-weights detection path
+    det = detection_path(smi.stdout.strip().splitlines()[0])
+    t = phase(9, "trained-weights detection path", t)
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
@@ -818,6 +1129,7 @@ def main() -> int:
         "source": "wsunet_tpu_torch/csrc/ws_fused.cu",
         "replaces": "wsunet_tpu/ops/pallas_ws.py:90",
         "launches": attack_launches,
+        "launches_detection_path": det["b2_launches"],
         "max_abs_err": max_err,
         "ms": b2_entry["ms"],
         "eager_ms": b2_entry["eager_ms"],
@@ -834,6 +1146,7 @@ def main() -> int:
         "replaces": "wsunet_tpu/experiments/pallas_reflect_conv.py:128",
         "launches": b1_launches,
         "launches_by_variant": b1_path,
+        "launches_detection_path": det["b1_launches"],
         "max_abs_err": max(b1_err_max.values()),
         **b1_entry,
     }]}))

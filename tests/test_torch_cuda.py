@@ -9,6 +9,7 @@ This file imports no JAX.
 """
 
 import copy
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,10 +20,14 @@ from wsunet_tpu_torch.models import get_model, init_unet
 from wsunet_tpu_torch.ops import (NAMED_FILTERS_2D, fused_reflect_conv,
                                   fused_ws, ws_attack)
 from wsunet_tpu_torch.serve import UNetWSServer
-from wsunet_tpu_torch.ws import attack_sweep, predict_batch
+from wsunet_tpu_torch.ws import (attack_batches, load_pretrained_unet,
+                                 predict_batch)
 
 # B2's tolerance (tests/test_pallas_ws.py): f32 sums in another order
 RTOL, ATOL = 1e-4, 1e-6
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# the JAX package's numbers on the p128 covers and their LSBr stego
+GOLDEN = REPO / "weights" / "golden" / "p128_lsbr.npz"
 
 
 @pytest.fixture
@@ -234,14 +239,14 @@ def test_attack_sweep_pinned_uploads_keep_results_and_order(cuda):
     plain path gives on each batch uploaded on its own."""
     batches = [_u8(s, seed=i) for i, s in enumerate(
         [(8, 64, 64), (3, 64, 64), (8, 96, 96), (8, 64, 64), (2, 64, 64)])]
-    got = attack_sweep(batches, kernel_name="AVG", weighted=-1)
+    got = attack_batches(batches, kernel_name="AVG", weighted=-1)
     want = torch.cat([ws_attack(torch.from_numpy(b).to(cuda),
                                 pixel_kernel=NAMED_FILTERS_2D["AVG"],
                                 weighted=-1) for b in batches])
     assert got.shape == (29,)
     np.testing.assert_allclose(got, want.cpu().numpy(), rtol=RTOL, atol=ATOL)
-    tensors = attack_sweep([torch.from_numpy(b) for b in batches],
-                           kernel_name="AVG", weighted=-1)
+    tensors = attack_batches([torch.from_numpy(b) for b in batches],
+                             kernel_name="AVG", weighted=-1)
     np.testing.assert_array_equal(got, tensors)
 
 
@@ -249,7 +254,7 @@ def test_attack_sweep_pinned_uploads_keep_results_and_order(cuda):
 def test_attack_sweep_runs_the_kernel(cuda):
     batches = [_u8((8, 128, 128), seed=s) for s in range(3)]
     fused_ws.reset_launches()
-    got = attack_sweep(batches, kernel_name="KB", weighted=1)
+    got = attack_batches(batches, kernel_name="KB", weighted=1)
     assert fused_ws.launches == 3
     want = torch.cat([ws_attack(torch.from_numpy(b).to(cuda),
                                 pixel_kernel=NAMED_FILTERS_2D["KB"],
@@ -270,3 +275,38 @@ def test_unet_card_matches_cpu_and_server_keeps_order(cuda):
     serial = [srv.predict(im) for im in imgs]
     np.testing.assert_allclose(list(srv.predict_many(iter(imgs), depth=3)),
                                serial, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_conv", [False, True])
+def test_trained_unet_on_card_matches_golden(cuda, fast_conv):
+    """The exported LSBR unet_2 on the card against the JAX package's f32
+    beta_hat and l1 (tests/test_torch_unet.py's bounds for trained
+    weights: |d beta| <= 1e-5, relative d l1 <= 1e-4)."""
+    gold = np.load(GOLDEN)
+    model, _ = load_pretrained_unet(REPO / "weights" / "unet" / "LSBR",
+                                    str(gold["run"]), fast_conv=fast_conv)
+    assert next(model.parameters()).is_cuda
+    px = gold["pixels"].reshape(-1, 128, 128)
+    fused_reflect_conv.reset_launches()
+    out = [predict_batch(model, px[i:i + 8]) for i in range(0, len(px), 8)]
+    beta = torch.cat([o[0] for o in out]).cpu().numpy().reshape(3, 64)
+    l1 = torch.cat([o[1] for o in out]).cpu().numpy().reshape(3, 64)
+    assert fused_reflect_conv.launches == (240 if fast_conv else 0)
+    np.testing.assert_allclose(beta, gold["beta/UNet"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(l1, gold["l1"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model, kw, tol", [
+    ("KB", {"kernel_name": "KB"}, (RTOL, ATOL)),
+    ("KB-w", {"kernel_name": "KB", "weighted": 1}, (RTOL, ATOL)),
+    ("KB-sca", {"kernel_name": "KB", "sca": True}, (1e-4, 1e-5))])
+def test_trained_path_filters_on_card_match_golden(cuda, model, kw, tol):
+    gold = np.load(GOLDEN)
+    px = gold["pixels"].reshape(-1, 128, 128)
+    fused_ws.reset_launches()
+    got = attack_batches([px[i:i + 8] for i in range(0, len(px), 8)], **kw)
+    assert fused_ws.launches == (0 if kw.get("sca") else 24)
+    np.testing.assert_allclose(got.reshape(3, 64), gold[f"beta/{model}"],
+                               rtol=tol[0], atol=tol[1])

@@ -1,0 +1,88 @@
+"""The port's import rule: no module of wsunet_tpu_torch, and not
+chip_smoke.py, imports JAX, the JAX package or scikit-learn anywhere, and
+none imports pandas, PIL, matplotlib, cv2 or scipy when it is imported
+(the card's machine has none of them; the CSV and plotting edges import
+them inside their functions).
+
+Each module is imported in a fresh interpreter in which those packages
+cannot be imported at all; and every import statement of the sources is
+read, function bodies included."""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "wsunet_tpu_torch"
+BLOCKED = ["jax", "jaxlib", "flax", "optax", "orbax", "wsunet_tpu", "sklearn",
+           "pandas", "PIL", "matplotlib", "cv2", "scipy"]
+NEVER = {"jax", "jaxlib", "flax", "optax", "orbax", "wsunet_tpu", "sklearn"}
+
+
+def _modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        parts = list(path.relative_to(REPO).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods + ["chip_smoke"]
+
+
+MODULES = _modules()
+
+_PROBE = r"""
+import importlib, importlib.abc, json, sys
+BLOCKED = set(json.loads(sys.argv[1]))
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+out = {}
+for mod in json.loads(sys.argv[2]):
+    try:
+        importlib.import_module(mod)
+        out[mod] = "ok"
+    except BaseException as e:
+        out[mod] = f"{type(e).__name__}: {e}"
+out["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, json.dumps(BLOCKED),
+         json.dumps(MODULES)], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_without_the_blocked_packages(imported, module):
+    assert imported[module] == "ok"
+    assert imported["loaded"] == []
+
+
+def _imported_names(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
+                         [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_jax_or_sklearn_anywhere(path):
+    bad = [n for n in _imported_names(path) if n.split(".")[0] in NEVER]
+    assert bad == []

@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 
 from wsunet_tpu.models import get_model as jax_get_model
-from wsunet_tpu.ops import NAMED_FILTERS_2D, ws_attack, ws_estimate_unet
+from wsunet_tpu.ops import (NAMED_FILTERS_2D, ws_attack, ws_attack_sca,
+                            ws_estimate_unet)
 from wsunet_tpu.serve import UNetWSServer as JaxServer
 from wsunet_tpu.ws.unet_eval import infer_unet as jax_infer_unet
 from wsunet_tpu_torch.models import get_model, unet_state_dict_from_flax
@@ -23,7 +24,7 @@ from wsunet_tpu_torch.ops import fused_ws
 from wsunet_tpu_torch.serve import (UNetWSServer, measure_latency,
                                     stream_paths)
 from wsunet_tpu_torch.utils.errors import UserError
-from wsunet_tpu_torch.ws import (attack_sweep, infer_unet,
+from wsunet_tpu_torch.ws import (attack_batches, infer_unet,
                                  parse_filter_model, predict_batch)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -148,8 +149,8 @@ def test_attack_sweep_matches_jax_per_batch(model_name, correct_bias):
     batches = [rng.integers(0, 256, (b, 40, 48), dtype=np.uint8)
                for b in (3, 3, 2)]
     fused_ws.reset_launches()
-    got = attack_sweep(batches, kernel_name=name, weighted=weighted,
-                       correct_bias=correct_bias, device="cpu")
+    got = attack_batches(batches, kernel_name=name, weighted=weighted,
+                         correct_bias=correct_bias, device="cpu")
     assert fused_ws.launches == 0  # the CPU takes ws_attack
     want = np.concatenate([np.asarray(ws_attack(
         jnp.asarray(b), pixel_kernel=NAMED_FILTERS_2D[name],
@@ -161,16 +162,20 @@ def test_attack_sweep_matches_jax_per_batch(model_name, correct_bias):
 def test_attack_sweep_with_pixel_estimator():
     rng = np.random.default_rng(8)
     batches = [rng.integers(0, 256, (2, 20, 20), dtype=np.uint8)]
-    got = attack_sweep(batches, pixel_estimator=lambda v: v[:, 1:-1, 1:-1]
-                       * 0.5, device="cpu")
+    got = attack_batches(batches, pixel_estimator=lambda v: v[:, 1:-1, 1:-1]
+                         * 0.5, device="cpu")
     want = np.asarray(ws_attack(jnp.asarray(batches[0]), pixel_estimator=
                                 lambda v: v[:, 1:-1, 1:-1] * 0.5))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-    assert attack_sweep([], kernel_name="KB", device="cpu").shape == (0,)
-    with pytest.raises(NotImplementedError):
-        attack_sweep(batches, kernel_name="KB", sca=True, device="cpu")
+    assert attack_batches([], kernel_name="KB", device="cpu").shape == (0,)
+    # the -sca score is served: the plain ws_attack_sca
+    np.testing.assert_allclose(
+        attack_batches(batches, kernel_name="KB", sca=True, device="cpu"),
+        np.asarray(ws_attack_sca(jnp.asarray(batches[0]),
+                                 pixel_kernel=NAMED_FILTERS_2D["KB"])),
+        rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError):
-        attack_sweep([np.zeros((2, 8, 8, 4), np.uint8)], kernel_name="KB",
+        attack_batches([np.zeros((2, 8, 8, 4), np.uint8)], kernel_name="KB",
                      device="cpu")
 
 
@@ -190,7 +195,7 @@ def test_entry_points_without_device_raise_on_cpu_box(models):
     with pytest.raises(UserError, match="device='cpu'"):
         UNetWSServer(tmodel, size=16)
     with pytest.raises(UserError):
-        attack_sweep([x], kernel_name="KB")
+        attack_batches([x], kernel_name="KB")
     with pytest.raises(UserError):
         infer_unet(tmodel, x.astype(np.float32))
     with pytest.raises(UserError):

@@ -15,10 +15,19 @@ counterpart there (``tests/test_torch_*.py``).  The slices so far cover:
 - the filter WS attack (``ws-eval`` with KB/AVG/AVG9 and the ``-w``
   weighting), which on CUDA runs the hand-written CUDA kernel
   ``ops.fused_ws`` (the port of the Pallas kernel ``ops/pallas_ws.py``),
-  built with nvcc at first use with the other kernels' sources.
+  built with nvcc at first use with the other kernels' sources;
+- the detection path over a catalog with trained weights: ``ws-eval``,
+  ``unet-eval`` and ``roc`` (``python -m wsunet_tpu_torch``, ``cli``),
+  with the catalog and batched pipeline (``data``), the readers and the
+  native PNG decoder (``io``), trained runs exported from the JAX
+  checkpoints (``train.checkpoint``, ``utils.registry``,
+  ``ws.unet_eval.load_pretrained_unet``), the ``-sca`` score
+  (``ops.hill``, ``ops.ws.ws_attack_sca``) and the ROC tables
+  (``detect``, numpy only).
 
 Importing the package needs only torch and numpy: no JAX, no triton, no
-pandas/PIL; the kernels need nvcc on the card's machine (``csrc/``).
+pandas/PIL/matplotlib (the CSV and plotting edges import them inside
+their functions); the kernels need nvcc on the card's machine (``csrc/``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``, and
 raise when CUDA is missing (``_device``).
 """

@@ -1,0 +1,266 @@
+"""Command-line interface (port of part of ``wsunet_tpu/cli.py``).
+
+    python -m wsunet_tpu_torch ws-eval     WS attack sweep
+    python -m wsunet_tpu_torch unet-eval   U-Net inference + WS error
+    python -m wsunet_tpu_torch roc         ROC/AUC/P_E over WS detectors
+
+The flags and defaults are the JAX CLI's, and the commands write the same
+files (``estimation/ws_sweep_<train>.csv``, ``estimation/ws_<method>.csv``,
+``detection/{auc,roc}_<alpha>.csv`` and ``roc_<alpha>.png``), with these
+differences: ``--model-dir`` and ``--unet-model-dir`` default to
+``weights/unet`` (the exported runs, ``scripts/export_torch_weights.py``),
+``--device`` picks the device (default CUDA), ``--fast-conv`` runs the
+U-Net's 3x3 convs through kernel B1 instead of cuDNN, and ``roc --b0`` is
+refused (the B0 detector is not ported yet, nor are its flags).  pandas
+and matplotlib are imported by the commands; the other subcommands of the
+JAX CLI do not exist yet.
+"""
+
+import argparse
+import pathlib
+import sys
+
+from .utils.errors import UserError
+
+WEIGHTS = pathlib.Path("weights/unet")
+
+
+def _common(p):
+    p.add_argument("--data", type=pathlib.Path, default=pathlib.Path("data"),
+                   help="dataset root (with files.csv subdirs)")
+    p.add_argument("--results", type=pathlib.Path,
+                   default=pathlib.Path("results"), help="output root")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--split", default=None,
+                   help="restrict to a split CSV (e.g. split_te.csv)")
+    p.add_argument("--take", type=int, default=None,
+                   help="take only the first N images")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' to run without "
+                        "a card)")
+    p.add_argument("--fast-conv", action="store_true",
+                   help="run the U-Net's 3x3 convs through kernel B1 (the "
+                        "port's reflect-conv kernel) instead of cuDNN")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="wsunet_tpu_torch",
+        description="WS steganalysis on PyTorch / CUDA")
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("ws-eval", help="WS attack sweep")
+    _common(p)
+    p.add_argument("--models", nargs="+", default=["AVG", "KB"],
+                   help="filter names and/or UNet")
+    p.add_argument("--model-dir", type=pathlib.Path, default=WEIGHTS)
+    p.add_argument("--train-method", default="LSBR",
+                   help="stego method the UNet was trained on")
+    p.add_argument("--stego-methods", nargs="+", default=["LSBR"],
+                   help="stego methods to attack (covers always included)")
+    p.add_argument("--alphas", nargs="+", type=float, default=[.4, .2, .1])
+    p.add_argument("--weighted", type=int, default=0, choices=[-1, 0, 1])
+    p.add_argument("--correct-bias", action="store_true")
+    p.add_argument("--channels", nargs="+", type=int, default=[3],
+                   help="[R,G,B,Y] planes: attacked channel last (only the "
+                        "luminance, 3, is ported)")
+
+    p = sub.add_parser("unet-eval",
+                       help="U-Net inference + WS prediction error")
+    _common(p)
+    p.add_argument("--model-dir", type=pathlib.Path, default=WEIGHTS)
+    p.add_argument("--stego-method", default="LSBR",
+                   help="training method of the model (dropout/LSBR/HILLR)")
+
+    p = sub.add_parser("roc", help="ROC/AUC/P_E over WS detectors")
+    _common(p)
+    p.add_argument("--unet-model-dir", type=pathlib.Path, default=WEIGHTS)
+    p.add_argument("--train-method", default="LSBR")
+    p.add_argument("--stego-methods", nargs="+", default=["LSBR"],
+                   help="stego methods to build curves for (e.g. HILLR)")
+    p.add_argument("--alphas", nargs="+", type=float, default=[.1, .05, .01])
+    p.add_argument("--models", nargs="+",
+                   default=["AVG", "KB", "KB-w", "KB-sca", "UNet"])
+    p.add_argument("--b0", action="store_true",
+                   help="include B0 detectors (not ported yet)")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    import os
+    try:
+        try:
+            return _dispatch(args)
+        finally:
+            from .data.pipeline import clear_device_cache
+            clear_device_cache()
+    except (UserError, FileNotFoundError) as e:
+        # a missing model or data directory is the user's, not a bug: one
+        # line; WSUNET_DEBUG=1 keeps the traceback
+        if os.environ.get("WSUNET_DEBUG") == "1":
+            raise
+        raise SystemExit(f"{args.command}: {e}")
+
+
+def _dispatch(args):
+    cmd = args.command
+    if cmd == "ws-eval":
+        res = _ws_sweep(args)
+        out = args.results / "estimation" / f"ws_sweep_{args.train_method}.csv"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res.to_csv(out, index=False)
+        print(f"output saved to {out}")
+    elif cmd == "unet-eval":
+        from .ws import unet_run
+        res = unet_run(args.data, args.model_dir, args.stego_method,
+                       batch_size=args.batch_size, split=args.split,
+                       take_num_images=args.take, fast_conv=args.fast_conv,
+                       device=args.device)
+        out = args.results / "estimation" / f"ws_{args.stego_method}.csv"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res.to_csv(out, index=False)
+        print(f"output saved to {out}")
+    elif cmd == "roc":
+        _cmd_roc(args)
+    return 0
+
+
+def _ws_sweep(args):
+    """Named filters plus both trained U-Nets, UNet_l1 (dropout-trained)
+    and UNet_l1ws_<method>, in one run.  'UNet' in --models expands to
+    both; 'UNet_l1' / 'UNet_l1ws' select one."""
+    import pandas as pd
+
+    from .utils.registry import get_model_name
+    from .ws import ws_run
+
+    unet_variants = {
+        "UNET": [("l1", "dropout"), ("l1ws", args.train_method)],
+        "UNET_L1": [("l1", "dropout")],
+        "UNET_L1WS": [("l1ws", args.train_method)],
+    }
+    frames = []
+    for stego_method in [None] + list(args.stego_methods):
+        for alpha in (args.alphas if stego_method else [None]):
+            for model in args.models:
+                variants = unet_variants.get(model.upper())
+                if variants is None:
+                    jobs = [(model, None, None)]
+                else:
+                    jobs = []
+                    for loss, tm in variants:
+                        try:
+                            name = get_model_name(
+                                args.model_dir, tm, loss=loss)
+                        except RuntimeError as e:
+                            print(f"skipping UNet {loss}/{tm}: {e}",
+                                  file=sys.stderr)
+                            continue
+                        label = ("UNet_" + loss +
+                                 (f"_{tm}" if loss == "l1ws" else ""))
+                        jobs.append((name, args.model_dir / tm, label))
+                for model_name, model_path, label in jobs:
+                    frames.append(ws_run(
+                        input_dir=args.data, stego_method=stego_method,
+                        alpha=alpha, model_name=model_name,
+                        model_path=model_path,
+                        channels=tuple(args.channels),
+                        weighted=args.weighted,
+                        correct_bias=args.correct_bias,
+                        batch_size=args.batch_size,
+                        split=args.split, take_num_images=args.take,
+                        model_label=label, fast_conv=args.fast_conv,
+                        device=args.device))
+    res = pd.concat(frames).reset_index(drop=True)
+    if "stego_method" in res:
+        res["stego_method"] = res["stego_method"].fillna("Cover")
+    else:
+        res["stego_method"] = "Cover"
+    return res
+
+
+def _cmd_roc(args):
+    import pandas as pd
+
+    from .detect import produce_roc
+    from .utils.registry import get_model_name
+    from .ws import ws_run
+
+    if args.b0:
+        raise UserError("the B0 detector is not ported yet (roadmap A6); "
+                        "run roc without --b0")
+    # "UNet" is the --train-method model on every eval method; another
+    # method of --stego-methods with its own trained model joins as
+    # "UNet_<method>", with its own cover pass
+    unet_variants = {}
+    if any(m.upper() == "UNET" for m in args.models):
+        methods = [args.train_method] + [
+            sm for sm in args.stego_methods if sm != args.train_method]
+        for tm in methods:
+            label = "UNet" if tm == args.train_method else f"UNet_{tm}"
+            try:
+                unet_variants[label] = get_model_name(
+                    args.unet_model_dir, tm), args.unet_model_dir / tm
+            except UserError as e:
+                print(f"skipping {label}: {e}", file=sys.stderr)
+
+    frames = []
+    for stego_method in [None] + list(args.stego_methods):
+        for alpha in (args.alphas if stego_method else [None]):
+            for model in args.models:
+                if model.upper() == "UNET":
+                    for label, (name, path) in unet_variants.items():
+                        frames.append(ws_run(
+                            input_dir=args.data, stego_method=stego_method,
+                            alpha=alpha, model_name=name, model_path=path,
+                            model_label=label, weighted=0,
+                            batch_size=args.batch_size,
+                            split=args.split, take_num_images=args.take,
+                            fast_conv=args.fast_conv, device=args.device))
+                else:
+                    frames.append(ws_run(
+                        input_dir=args.data, stego_method=stego_method,
+                        alpha=alpha, model_name=model,
+                        model_path=None, weighted=0,
+                        batch_size=args.batch_size,
+                        split=args.split, take_num_images=args.take,
+                        device=args.device))
+
+    res = pd.concat(frames).reset_index(drop=True)
+    res["stego_method"] = res["stego_method"].fillna("Cover")
+    res["alpha"] = res["alpha"].fillna(0.0)
+    df_roc = produce_roc(res)
+
+    alpha = args.alphas[-1]
+    outdir = args.results / "detection"
+    outdir.mkdir(parents=True, exist_ok=True)
+    df_auc = df_roc[["stego_method", "model_name", "auc", "p_e", "wauc",
+                     "pmd_5fp", "tau0", "fpr_tau0", "tpr_tau0", "fpr_50",
+                     "tpr_50"]].drop_duplicates()
+    df_auc.to_csv(outdir / f"auc_{alpha}.csv", index=False)
+    pivot = df_roc.pivot(index=["tau"],
+                         columns=["stego_method", "model_name"],
+                         values=["tpr", "fpr"])
+    pivot.columns = ["_".join(c).strip() for c in pivot.columns.values]
+    pivot.to_csv(outdir / f"roc_{alpha}.csv", index=False)
+
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots()
+    for label, df_i in df_roc.groupby("label"):
+        df_i = df_i.sort_values("tau")
+        ax.plot(df_i["fpr"], df_i["tpr"], label=label)
+    ax.plot([0, 1], [0, 1], linestyle="--", color="gray", label="Random")
+    ax.set_xlabel("False Positive Rate (FPR)")
+    ax.set_ylabel("True Positive Rate (TPR)")
+    ax.legend(loc="lower right")
+    fig.savefig(outdir / f"roc_{alpha}.png", bbox_inches="tight", dpi=300)
+    plt.close(fig)
+    print(df_auc.to_string())
+    print(f"outputs saved to {outdir}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+from .imread import (imread4_f32, imread4_u8, imread_f32, imread_gray_u8,
+                     imread_u8)
+
+__all__ = [
+    "imread_u8",
+    "imread_f32",
+    "imread4_u8",
+    "imread4_f32",
+    "imread_gray_u8",
+]

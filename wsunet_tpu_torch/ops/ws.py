@@ -3,6 +3,8 @@
 
 - ``ws_attack``: uint8-domain LSB flip, a weighted sum with uniform 1/N
   or (inverse-)variance weights, clip at 0, optional bias correction.
+- ``ws_attack_sca``: the selection-channel-aware score, the unclipped WS
+  mean over the lowest-HILL-cost ``frac`` of the interior (``-sca`` rows).
 - ``ws_estimate_unet``: the U-Net variant: mean instead of a weighted
   sum, no clipping, 1-px border crop applied to x before the product.
 
@@ -77,6 +79,54 @@ def ws_attack(
         beta_hat = beta_hat - beta_hat * torch.sum(
             w * (x1 - x1_bar) * x_bias, dim=(1, 2))
     return beta_hat
+
+
+def _quantile_linear(v: torch.Tensor, frac: float) -> torch.Tensor:
+    """Per-row ``frac`` quantile of [B, N] f32 with linear interpolation,
+    computed as ``jnp.quantile`` computes it (position frac * (N - 1) in
+    f32, the two neighbours of the sorted row weighted in f32).  Sorting
+    takes any N; ``torch.quantile`` refuses more than 2**24 elements."""
+    n = v.shape[1]
+    pos = np.float32(frac) * np.float32(n - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    w_hi = np.float32(pos - np.float32(lo))
+    w_lo = np.float32(1) - w_hi
+    s = torch.sort(v, dim=1).values
+    return s[:, lo] * w_lo + s[:, hi] * w_hi
+
+
+def ws_attack_sca(
+    x_u8: torch.Tensor,
+    pixel_kernel=None,
+    pixel_estimator: typing.Callable = None,
+    frac: float = 0.05,
+) -> torch.Tensor:
+    """Selection-channel-aware WS score of a uint8 batch [B, H, W] -> [B]:
+
+        mean over {rho_i <= Q_frac(rho)} of (x_i - xbar_i)(x_i - xhat_i)
+
+    with rho the HILL cost of the image (wet 1e10) over the interior.
+    ``<=`` keeps the threshold pixel itself, so ties at the quantile grow
+    the region.  Unclipped: a detector score, not a rate estimate."""
+    from .hill import hill_cost
+
+    x = x_u8.to(torch.float32)
+    # the flip is taken on the uint8 values (an f32 input is cast first)
+    x_bar = lsb_flip_u8(x_u8.to(torch.uint8)).to(torch.float32)
+    if pixel_estimator is None:
+        def pixel_estimator(v):
+            return filter_predict(v, pixel_kernel)
+    x_hat = pixel_estimator(x)
+    x1 = x[:, 1:-1, 1:-1]
+    x1_bar = x_bar[:, 1:-1, 1:-1]
+    s = (x1 - x1_bar) * (x1 - x_hat)
+
+    rho = hill_cost(x, wet_cost=1e10)[:, 1:-1, 1:-1]
+    B = x.shape[0]
+    thresh = _quantile_linear(rho.reshape(B, -1), frac)[:, None, None]
+    low = rho <= thresh
+    return (torch.sum(torch.where(low, s, torch.zeros_like(s)), dim=(1, 2))
+            / torch.sum(low, dim=(1, 2)))
 
 
 def ws_estimate_unet(

@@ -1,5 +1,9 @@
-from .estimate import attack_sweep, parse_filter_model
-from .unet_eval import infer_unet, predict_batch
+from .estimate import attack_batches, attack_sweep, parse_filter_model
+from .estimate import run as ws_run
+from .unet_eval import (get_unet_estimator, infer_unet, load_pretrained_unet,
+                        predict_batch, predict_sweep)
+from .unet_eval import run as unet_run
 
-__all__ = ["attack_sweep", "parse_filter_model", "infer_unet",
-           "predict_batch"]
+__all__ = ["attack_batches", "attack_sweep", "parse_filter_model", "ws_run",
+           "get_unet_estimator", "infer_unet", "load_pretrained_unet",
+           "predict_batch", "predict_sweep", "unet_run"]

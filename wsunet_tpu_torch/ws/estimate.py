@@ -1,25 +1,33 @@
-"""WS attack sweep over uint8 batches (port of the array part of
-``wsunet_tpu/ws/estimate.py``).
+"""WS attack sweeps (port of ``wsunet_tpu/ws/estimate.py``).
+
+- ``attack_batches``: beta_hat over an iterable of uint8 [B, H, W]
+  batches (arrays or tensors).
+- ``attack_sweep``: the same over catalog rows, fed by
+  ``data.pipeline.iterate_batches``; a failed decode gives NaN.
+- ``run``: one (stego method, alpha, model) configuration, the rows of the
+  ``ws-eval`` and ``roc`` sweeps (pandas at this edge only).
 
 The dispatch rule is the JAX package's: a named-filter attack without
 bias correction, colour or the ``-sca`` score goes to the fused kernel
-(there: Pallas on a TPU; here: the CUDA kernel B2 on a CUDA batch);
-everything else to ``ops.ws.ws_attack``.  On CUDA, numpy batches are
-uploaded through two pinned host buffers, kept per device from call to
-call (``_PinnedUpload``).  The catalog/CSV ``run`` waits
-for the data-module slice; colour batches ([B, H, W, 4], the colour OLS
-predictor) and ``-sca`` (HILL costs) wait for the slices that port them.
+(there: Pallas on a TPU; here: the CUDA kernel B2 on the card); the rest
+to ``ops.ws.ws_attack`` or ``ops.ws.ws_attack_sca`` (plain PyTorch, as
+they are plain XLA in JAX).  On CUDA, numpy batches are uploaded through
+two pinned host buffers (``_device.to_device``).  The OLS predictor and
+colour planes are not ported yet and raise ``UserError``.
 """
 
+import pathlib
 import typing
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..ops.filters import NAMED_FILTERS_2D
 from ..ops.fused_ws import ws_attack_fused
-from ..ops.ws import ws_attack
+from ..ops.ws import ws_attack, ws_attack_sca
+from ..utils.errors import UserError
+from .unet_eval import get_unet_estimator
 
 
 def parse_filter_model(model_name: str) -> typing.Tuple[str, int, bool]:
@@ -34,42 +42,33 @@ def parse_filter_model(model_name: str) -> typing.Tuple[str, int, bool]:
     return model_name, 0, False
 
 
-class _PinnedUpload:
-    """Host -> device copies of numpy batches through two pinned host
-    buffers used in turn, with ``non_blocking=True``, as ``serve.py`` does
-    for requests.  A buffer is refilled only after the event recorded
-    behind its last copy has passed, so a batch is never overwritten while
-    it is still being copied; a buffer grows when a batch does not fit."""
+def _attack_step(dev: torch.device, pixel_kernel, pixel_estimator,
+                 kernel_name, weighted, correct_bias, sca) -> typing.Callable:
+    """The per-batch step: a uint8 batch -> beta_hat [B] on ``dev``."""
+    if kernel_name is not None and pixel_kernel is None:
+        pixel_kernel = NAMED_FILTERS_2D[kernel_name]
+    use_fused = (kernel_name is not None and not correct_bias and not sca
+                 and dev.type == "cuda")
 
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.slots = [None, None]   # (flat pinned buffer, event) or None
-        self.turn = 0
+    def step(batch) -> torch.Tensor:
+        x = to_device(batch, dev)
+        if x.ndim != 3:
+            raise ValueError(
+                f"expected uint8 [B, H, W] batches, got {tuple(x.shape)}")
+        if use_fused:
+            return ws_attack_fused(x.contiguous(), kernel_name,
+                                   weighted=weighted)
+        if sca:
+            return ws_attack_sca(x, pixel_kernel=pixel_kernel,
+                                 pixel_estimator=pixel_estimator)
+        return ws_attack(x, pixel_kernel=pixel_kernel,
+                         pixel_estimator=pixel_estimator,
+                         weighted=weighted, correct_bias=correct_bias)
 
-    def __call__(self, batch: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(np.ascontiguousarray(batch))
-        slot = self.slots[self.turn]
-        if slot is not None:
-            slot[1].synchronize()
-        if slot is None or slot[0].dtype != src.dtype or \
-                slot[0].numel() < src.numel():
-            slot = (torch.empty(src.numel(), dtype=src.dtype,
-                                pin_memory=True), None)
-        host = slot[0][:src.numel()].view(src.shape)
-        host.copy_(src)   # torch's copy, several threads; numpy's is one
-        x = host.to(self.dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.dev))
-        self.slots[self.turn] = (slot[0], event)
-        self.turn ^= 1
-        return x
+    return step
 
 
-# device -> its _PinnedUpload, kept so that no call allocates pinned memory
-_uploads = {}
-
-
-def attack_sweep(
+def attack_batches(
     batches: typing.Iterable,
     pixel_kernel=None,
     pixel_estimator: typing.Callable = None,
@@ -83,36 +82,111 @@ def attack_sweep(
     uint8 [B, H, W] arrays or tensors, computed on ``device`` (None =
     CUDA).  ``kernel_name`` names a filter of ``NAMED_FILTERS_2D``;
     ``pixel_kernel`` (a 3x3 array) or ``pixel_estimator`` (f32 [B, H, W]
-    -> [B, H-2, W-2]) set any other predictor."""
-    if sca:
-        raise NotImplementedError(
-            "the -sca score (HILL costs) is not ported yet")
-    dev = resolve_device(device)
-    if kernel_name is not None and pixel_kernel is None:
-        pixel_kernel = NAMED_FILTERS_2D[kernel_name]
-    use_fused = (kernel_name is not None and not correct_bias and
-                 dev.type == "cuda")
-    upload = None
-    if dev.type == "cuda":
-        upload = _uploads.setdefault(dev, _PinnedUpload(dev))
-    betas = []
+    -> [B, H-2, W-2]) set any other predictor; ``sca`` takes the
+    selection-channel-aware score."""
+    step = _attack_step(resolve_device(device), pixel_kernel,
+                        pixel_estimator, kernel_name, weighted, correct_bias,
+                        sca)
     with torch.no_grad():
-        for batch in batches:
-            if upload is not None and isinstance(batch, np.ndarray):
-                x = upload(batch)
-            else:
-                x = torch.as_tensor(batch, device=dev)
-            if x.ndim != 3:
-                raise ValueError(
-                    f"expected uint8 [B, H, W] batches, got {tuple(x.shape)}")
-            if use_fused:
-                b = ws_attack_fused(x.contiguous(), kernel_name,
-                                    weighted=weighted)
-            else:
-                b = ws_attack(x, pixel_kernel=pixel_kernel,
-                              pixel_estimator=pixel_estimator,
-                              weighted=weighted, correct_bias=correct_bias)
-            betas.append(b)
+        betas = [step(batch) for batch in batches]
     if not betas:
         return np.array([])
     return torch.cat(betas).cpu().numpy().astype("float64")
+
+
+def attack_sweep(
+    root: pathlib.Path,
+    df,
+    pixel_kernel=None,
+    pixel_estimator: typing.Callable = None,
+    kernel_name: str = None,
+    weighted: int = 0,
+    correct_bias: bool = False,
+    batch_size: int = 8,
+    threads: int = 8,
+    sca: bool = False,
+    device=None,
+) -> np.ndarray:
+    """beta_hat (float64) for every catalog row of ``df`` (anything with a
+    ``name`` column), in order; NaN where the image failed to decode."""
+    from ..data.pipeline import sweep_batches
+
+    step = _attack_step(resolve_device(device), pixel_kernel,
+                        pixel_estimator, kernel_name, weighted, correct_bias,
+                        sca)
+    # roc runs this once per (model, method, alpha) over the same images;
+    # each is decoded once
+    with torch.no_grad():
+        return sweep_batches(root, list(df["name"]),
+                             lambda px: (step(px),), batch_size,
+                             threads=threads).reshape(-1)
+
+
+def run(
+    input_dir: pathlib.Path,
+    stego_method: str,
+    alpha: float,
+    model_name: str,
+    model_path: pathlib.Path = None,
+    channels: typing.Tuple[int, ...] = (3,),
+    weighted: int = 0,
+    correct_bias: bool = False,
+    batch_size: int = 8,
+    threads: int = 8,
+    split: str = None,
+    take_num_images: int = None,
+    model_label: str = None,
+    fast_conv=False,
+    device=None,
+):
+    """One (stego_method, alpha, model) attack configuration: the selected
+    rows with beta_hat, model_name, channels, weighted and correct_bias
+    (rows whose image failed to decode are dropped).  ``model_name`` is a
+    named filter, ``<FILTER>-w``, ``<FILTER>-sca``, or a trained U-Net run
+    under ``model_path`` (labelled "UNet"); ``model_label`` overrides the
+    model_name column.  ``stego_method`` None selects the covers;
+    ``fast_conv=True`` runs a U-Net's 3x3 convs through kernel B1."""
+    from ..data.catalog import precovers, stego_spatial
+
+    if tuple(channels) not in ((), (3,)):
+        raise UserError(f"channels {tuple(channels)}: colour planes are not "
+                        "ported yet (roadmap A4)")
+    kernel_name, estimator, kernel = None, None, None
+    weighted_label = None
+    sca = False
+    if model_name.endswith("-w") and model_name[:-2] in NAMED_FILTERS_2D:
+        weighted_label, model_name, weighted = model_name, model_name[:-2], 1
+    if model_name.endswith("-sca") and model_name[:-4] in NAMED_FILTERS_2D:
+        weighted_label, model_name, sca = model_name, model_name[:-4], True
+    if model_name in NAMED_FILTERS_2D:
+        kernel, kernel_name = NAMED_FILTERS_2D[model_name], model_name
+        out_model_name = model_name
+    elif model_name == "OLS":
+        raise UserError("the OLS predictor is not ported yet (roadmap A4)")
+    else:
+        estimator = get_unet_estimator(model_path, model_name,
+                                       fast_conv=fast_conv, device=device)
+        out_model_name = "UNet"
+
+    select = dict(split=split, take_num_images=take_num_images)
+    if stego_method:
+        df = stego_spatial(input_dir, stego_method=stego_method, alpha=alpha,
+                           **select)
+    else:
+        df = precovers(input_dir, **select)
+
+    betas = attack_sweep(
+        input_dir, df, pixel_kernel=kernel, pixel_estimator=estimator,
+        kernel_name=kernel_name, weighted=weighted,
+        correct_bias=correct_bias, batch_size=batch_size, threads=threads,
+        sca=sca, device=device)
+
+    res = df.reset_index(drop=True).copy()
+    res["beta_hat"] = betas
+    res["model_name"] = model_label or weighted_label or out_model_name
+    res["channels"] = "".join(map(str, channels))
+    # -sca rows stamp weighted and correct_bias values the score ignores,
+    # as the JAX package's do
+    res["weighted"] = weighted
+    res["correct_bias"] = correct_bias
+    return res[~res.beta_hat.isna()]
