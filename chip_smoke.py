@@ -64,6 +64,19 @@ kernel against its plain PyTorch version:
    from ``detect.roc_stats`` against JAX's; and a probe of the native PNG
    decoder (``io.native``), bitwise against the golden covers where it
    builds.
+10. the B0 detection path, on the same images and
+   ``weights/golden/p128_b0.npz`` (the JAX package's B0 and OLS numbers on
+   them): both exported LSBR B0 runs (``load_pretrained_b0`` from
+   ``weights/b0``) in f32 against JAX's P(stego), and in bf16 against the
+   card's f32 within 1.25 times JAX's own bf16 distance; the ROC
+   statistics of both ``roc --b0`` labels and of OLS against JAX's; OLS
+   fitted on the card (gray and color4 taps, beta_hat, no B2 launch); the
+   name-based catalog sweep (``detect.b0_eval.score_sweep``) over ``.npy``
+   files, one corrupt; and both configurations at full width, 512x512,
+   B=8 (``detector-eval``'s batch) and 32, f32 and bf16: img/s by host
+   clock, device ms by CUDA-graph replay, peak memory, GMACs an image
+   from the layer shapes and the share of the card's peak, and the top
+   kernels from torch.profiler at B=32.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -96,6 +109,12 @@ ALPHA = 0.4
 FAST_CONV = [False, "borderfix", True]
 REPO = pathlib.Path(__file__).resolve().parent
 GOLDEN = REPO / "weights" / "golden" / "p128_lsbr.npz"
+GOLDEN_B0 = REPO / "weights" / "golden" / "p128_b0.npz"
+# P(stego) of the trained B0 runs against JAX (tests/test_torch_b0.py):
+# f32 sums in another order move logits of up to 100 by about 3e-6
+# relative, a P(stego) near 0.5 by up to 3.6e-5 on the CPU
+B0_ATOL = 1e-4
+B0_BF16_SLACK = 1.25
 # KB-sca against JAX (tests/test_torch_hill_sca.py): sums in another order,
 # and a pixel at the cost quantile may fall on the other side of it
 SCA_RTOL, SCA_ATOL = 1e-4, 1e-5
@@ -589,6 +608,267 @@ def detection_path(smi_line: str) -> dict:
         print(f"native decoder: unavailable ({first})")
     return {"b1_launches": b1_launches, "b2_launches": b2_launches,
             "table": table}
+
+
+def b0_macs(model, size: int) -> dict:
+    """Multiply-accumulates of one B0 forward on a size x size image,
+    counted from the layer shapes (forward hooks on every conv and the
+    classifier of a one-image forward), by kind: the stem, the 1x1
+    expand, project and head convs, the depthwise convs, squeeze-excite
+    and the classifier."""
+    from wsunet_tpu_torch.models.b0 import _SqueezeExcite
+
+    macs = {"stem": 0, "1x1": 0, "depthwise": 0, "se": 0, "classifier": 0}
+    se = {id(m) for blk in model.modules() if isinstance(blk, _SqueezeExcite)
+          for m in blk.modules()}
+    hooks = []
+
+    def count(mod, inputs, out):
+        if isinstance(mod, torch.nn.Linear):
+            macs["classifier"] += mod.in_features * mod.out_features
+            return
+        k = mod.in_channels // mod.groups * mod.kernel_size[0] * \
+            mod.kernel_size[1]
+        n = out[0].numel() * k
+        kind = ("se" if id(mod) in se else "stem" if mod is model.conv_stem
+                else "depthwise" if mod.groups > 1 else "1x1")
+        macs[kind] += n
+
+    for mod in model.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            hooks.append(mod.register_forward_hook(count))
+    dev = next(model.parameters()).device
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, model.conv_stem.in_channels -
+                              int(model.parity_features), size, size,
+                              device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs
+
+
+def b0_path(smi_line: str) -> dict:
+    """Phase 10: the B0 detection path.  (a) both exported LSBR B0 runs on
+    the golden images against JAX (P(stego), f32 and bf16, and the ROC
+    statistics of both ``roc --b0`` labels); (b) the name-based catalog
+    sweep from ``.npy`` files, one corrupt; (c) OLS fitted on the card
+    against JAX (taps and beta_hat; gray and color4), off B2; (d) both
+    configurations at full width, 512x512, B=8 and B=32, f32 and bf16."""
+    from wsunet_tpu_torch.data import pipeline
+    from wsunet_tpu_torch.detect import (infer_b0, load_pretrained_b0,
+                                         roc_stats)
+    from wsunet_tpu_torch.detect.b0_eval import get_b0_detector, score_sweep
+    from wsunet_tpu_torch.ops import fused_ws, ols, ws_attack
+    from wsunet_tpu_torch.ws import attack_batches
+
+    gold = np.load(GOLDEN_B0)
+    gold0 = np.load(GOLDEN)
+    check(np.array_equal(gold["names"], gold0["names"]),
+          "p128_b0.npz and p128_lsbr.npz hold different images")
+    pixels = gold0["pixels"]                     # [set, 64, 128, 128]
+    sets, alphas = list(gold["sets"]), [float(a) for a in gold["alphas"]]
+    n_img = pixels.shape[1]
+    batches = [pixels[s, i:i + 8] for s in range(len(sets))
+               for i in range(0, n_img, 8)]
+    b0_dir = REPO / "weights" / "b0" / "LSBR"
+
+    def per_set(values) -> np.ndarray:
+        return torch.cat(values).cpu().numpy().reshape(len(sets), n_img)
+
+    # (a) the trained runs against JAX, f32 with TF32 off
+    probs, models = {}, {}
+    for run, label in zip(gold["runs"], gold["labels"]):
+        label = str(label)
+        model, config = load_pretrained_b0(b0_dir, str(run))
+        ref = bool(config["lsbr_reference"])
+        models[label] = (model, config)
+        probs[label] = per_set([infer_b0(model, b, use_lsbr_reference=ref)
+                                for b in batches])
+        err = float(np.abs(probs[label] - gold[f"prob/{label}"]).max())
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"trained B0 {label} ({run}; {n_params:,} parameters, "
+              f"no_stem_stride={config['no_stem_stride']}, lsbr_reference="
+              f"{ref}, parity_features={config['parity_features']}), f32, "
+              f"{len(batches)} batches of 8x128x128 against JAX: max |d "
+              f"P(stego)| {err:.3e} (bound {B0_ATOL}; within 1e-5: "
+              f"{err <= 1e-5})")
+        check(err <= B0_ATOL, f"trained B0 {label} f32 != JAX")
+        # bf16 on the covers, against the card's f32, within 1.25 times
+        # the JAX package's own bf16-to-f32 distance on the same images:
+        # bf16 loses the LSB signal in both packages alike, and one image
+        # sets the maximum (CPU: 9.373e-2 against JAX's 9.346e-2)
+        model16, _ = load_pretrained_b0(b0_dir, str(run),
+                                        compute_dtype=torch.bfloat16)
+        p16 = torch.cat([infer_b0(model16, b, use_lsbr_reference=ref)
+                         for b in batches[:n_img // 8]]).cpu().numpy()
+        del model16
+        d16 = float(np.abs(p16 - probs[label][0]).max())
+        jax_d16 = float(np.abs(gold[f"prob_bf16/{label}"] -
+                               gold[f"prob/{label}"][0]).max())
+        print(f"trained B0 {label} bf16 against the card's f32 on the "
+              f"{n_img} covers: max |d P| {d16:.3e}; the JAX package's "
+              f"bf16 against its f32: {jax_d16:.3e} (bound {B0_BF16_SLACK} "
+              "times that)")
+        check(np.isfinite(p16).all() and d16 <= B0_BF16_SLACK * jax_d16,
+              f"trained B0 {label} bf16 further from f32 than JAX's bf16")
+
+    # (c) OLS on the card: the normal equations in float64 on the device
+    covers = torch.from_numpy(pixels[0]).cuda()
+    taps = ols.fit_ols(covers)
+    d_taps = float(np.abs(taps - gold["ols/taps"]).max())
+    kernel = ols.ols_kernel2d(covers)[::-1, ::-1]
+    before = fused_ws.launches
+    probs["OLS"] = attack_batches(batches, pixel_kernel=kernel).reshape(
+        len(sets), n_img)
+    check(fused_ws.launches == before, "OLS ran on B2")
+    d_beta = float(np.abs(probs["OLS"] - gold["beta/OLS"]).max())
+    channels = tuple(int(c) for c in gold["color/channels"])
+    x4 = torch.from_numpy(gold["color/pixels"]).cuda().permute(0, 1, 4, 2, 3)
+    kernels = ols.ols_color_kernels(x4[0], channels)
+    d_ctaps = float(np.abs(ols.fit_ols_color(x4[0], channels) -
+                           gold["color/taps"]).max())
+    cbeta = torch.stack([ws_attack(
+        x[:, channels[-1]],
+        pixel_estimator=lambda _, x=x: ols.ols_color_predict(x.float(),
+                                                             kernels))
+        for x in x4]).cpu().numpy()
+    d_cbeta = float(np.abs(cbeta - gold["color/beta"]).max())
+    print(f"OLS on the card (float64 normal equations, exact for integer "
+          f"pixels) against JAX's f32 sums: gray taps on {n_img} covers "
+          f"max |d| {d_taps:.3e} (<= 2e-3), beta_hat over "
+          f"{len(batches)} batches {d_beta:.3e} (<= 2e-4); color4 "
+          f"{channels} taps {d_ctaps:.3e} (<= 1e-2), beta_hat {d_cbeta:.3e} "
+          "(<= 1e-3); no B2 launch")
+    check(d_taps <= 2e-3 and d_beta <= 2e-4 and d_ctaps <= 1e-2 and
+          d_cbeta <= 1e-3, "OLS on the card != JAX")
+
+    # the detection statistics of both B0 labels (label alpha) at phase 9's
+    # bounds, and of OLS (clipped beta_hat, label alpha / 2) within one
+    # image's weight: JAX's f32 normal equations move its taps, and an
+    # image may cross one of the grid's thresholds
+    stats = list(gold["stats"])
+    b0_bounds = {"auc": 1 / n_img ** 2, "wauc": 1 / n_img ** 2,
+                 "p_e": 1 / n_img, "pmd_5fp": 1 / n_img}
+    ols_bounds = dict.fromkeys(b0_bounds, 1 / n_img)
+    table = []
+    for a, alpha in enumerate(alphas):
+        s = sets.index(str(alpha))
+        for d, det in enumerate(gold["detectors"]):
+            det = str(det)
+            score = np.r_[probs[det][0], probs[det][s]]
+            if det == "OLS":
+                got = roc_stats(np.clip(score, 0, None),
+                                np.r_[np.zeros(n_img), np.full(n_img,
+                                                               alpha / 2)])
+            else:
+                got = roc_stats(score, np.r_[np.zeros(n_img),
+                                             np.full(n_img, alpha)])
+            row = {"alpha": alpha, "detector": det}
+            bounds = ols_bounds if det == "OLS" else b0_bounds
+            for k, key in enumerate(stats):
+                want = float(gold["roc"][a, d, k])
+                row[key], row[key + "_jax"] = float(got[key]), want
+                if key in bounds:
+                    check(abs(row[key] - want) <= bounds[key] + 1e-12,
+                          f"{det} alpha {alpha}: {key} {row[key]} against "
+                          f"JAX {want} (bound {bounds[key]})")
+            table.append(row)
+    print(f"B0 / OLS detection on the card ({smi_line}), 64 covers + 64 "
+          "LSBr stego of data_ablation/p128 per alpha, card (JAX): " +
+          "; ".join(f"{r['detector']} a={r['alpha']}: AUC {r['auc']:.6f} "
+                    f"({r['auc_jax']:.6f}) P_E {r['p_e']:.6f} "
+                    f"({r['p_e_jax']:.6f}) wAUC {r['wauc']:.6f} "
+                    f"({r['wauc_jax']:.6f}) PMD5FP {r['pmd_5fp']:.6f} "
+                    f"({r['pmd_5fp_jax']:.6f})" for r in table))
+    print("B0 / OLS detection: B0's AUC and wAUC within 1/4096 of JAX's, "
+          "P_E and P_MD@5%FP within 1/64; OLS's four within 1/64")
+
+    # (b) the catalog sweep through image names, from .npy files
+    root = REPO / "build" / "smoke_b0"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    names = [f"images/{i:02d}.npy" for i in range(n_img)]
+    for nm, img in zip(names, pixels[0]):
+        np.save(root / nm, img)
+    bad = 5
+    (root / names[bad]).write_bytes(b"not an array")
+    keep = np.arange(n_img) != bad
+    pipeline.clear_decode_cache()
+    for run, label in zip(gold["runs"], gold["labels"]):
+        label = str(label)
+        detect = get_b0_detector(b0_dir, str(run), lsbr_reference=bool(
+            models[label][1]["lsbr_reference"]))
+        got = score_sweep(root, names, detect, 8, reader=np.load)
+        err = float(np.abs(got[keep] - gold[f"prob/{label}"][0][keep]).max())
+        check(np.isnan(got[bad]) and np.isfinite(got[keep]).all() and
+              err <= B0_ATOL, f"catalog B0 sweep {label}: NaN rows wrong "
+                              f"or != JAX ({err})")
+        print(f"catalog B0 sweep {label} (score_sweep over {n_img} .npy "
+              f"files, one corrupt): NaN row for the corrupt file; the "
+              f"rest max |d P| {err:.3e} from JAX")
+    pipeline.clear_decode_cache()
+    shutil.rmtree(root)
+
+    # (d) both configurations at full width: 512x512, the detector-eval
+    # batch (8) and 32, f32 (TF32 off) and bf16
+    rows = []
+    x32 = torch.from_numpy(smooth_covers(32, 512, seed=21)).cuda()
+    for label, (model, config) in models.items():
+        ref = bool(config["lsbr_reference"])
+        macs = b0_macs(model, 512)
+        gmacs = sum(macs.values()) / 1e9
+        for dtype in (torch.float32, torch.bfloat16):
+            m = copy.deepcopy(model)
+            m.compute_dtype = dtype
+            peak = F32_OPS_PER_S if dtype == torch.float32 \
+                else BF16_OPS_PER_S
+            for B in (8, 32):
+                x = x32[:B]
+
+                def step(v, m=m):
+                    return infer_b0(m, v, use_lsbr_reference=ref)
+
+                step(x)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                step(x)
+                torch.cuda.synchronize()
+                peak_mem = torch.cuda.max_memory_allocated()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step(x)
+                torch.cuda.synchronize()
+                host_ms = 1e3 * (time.perf_counter() - t0) / 3
+                dev_ms = graph_ms(step, [x], reps=3, iters=2)
+                row = {"detector": label, "dtype": str(dtype)[6:], "B": B,
+                       "img_per_s": B * 1e3 / host_ms, "host_ms": host_ms,
+                       "device_ms": dev_ms,
+                       "device_img_per_s": B * 1e3 / dev_ms,
+                       "peak_mem_gib": peak_mem / 2 ** 30,
+                       "gmacs_per_img": gmacs,
+                       "tflops": 2 * gmacs * B / dev_ms,
+                       "peak_share": 2e9 * gmacs * B / (dev_ms * 1e-3) / peak}
+                if B == 32:
+                    prof = device_profile(lambda: step(x), 2, top=8)
+                    row["busy_share"] = prof["busy_share"]
+                    row["top"] = prof["top"] if prof["busy_share"] \
+                        is not None else "not measured"
+                print(f"B0 full width ({smi_line}): " + json.dumps(row))
+                rows.append(row)
+            del m
+        print(f"B0 {label} MACs per 512x512 image by kind (from the layer "
+              f"shapes): " + json.dumps(macs))
+    del x32
+    torch.cuda.empty_cache()
+    print("B0 img_per_s: host clock over 3 synchronised steps (infer_b0 "
+          "from uint8 on the card: /255, the reference plane, "
+          "normalisation, the model, softmax); device_ms: CUDA-graph "
+          "replay; peak_mem: torch.cuda.max_memory_allocated over one "
+          "step; tflops = 2 * MACs / device time, peak_share against "
+          "67e12 f32 / 989e12 bf16 (H100 SXM data sheet)")
+    return {"table": table, "full_width": rows}
 
 
 def main() -> int:
@@ -1121,6 +1401,10 @@ def main() -> int:
     # ---- 9. the trained-weights detection path
     det = detection_path(smi.stdout.strip().splitlines()[0])
     t = phase(9, "trained-weights detection path", t)
+
+    # ---- 10. the B0 detection path
+    b0_path(smi.stdout.strip().splitlines()[0])
+    t = phase(10, "B0 detection path", t)
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{

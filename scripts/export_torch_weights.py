@@ -8,7 +8,12 @@ port reads with numpy and json alone:
     weights/unet/<method>/<run>/config.json   (copied)
     weights/unet/<method>/<run>/best.npz      (the f32 params tree,
                                                '/'-joined Flax paths)
-    weights/golden/p128_lsbr.npz              (the card's golden file)
+    weights/b0/<method>/<run>/{config.json, best.npz}
+                                              (the same, and the batch-norm
+                                               running statistics under
+                                               'batch_stats/')
+    weights/golden/p128_lsbr.npz              (the card's golden files)
+    weights/golden/p128_b0.npz
 
 The golden file holds the 64 covers of ``data_ablation/p128``, their LSBr
 stego at alpha 0.1 and 0.01 (drawn as ``python -m wsunet_tpu simulate``
@@ -16,10 +21,16 @@ draws them), and what the JAX package computes on them: beta_hat and l1 of
 the LSBR ``unet_2`` (the ``unet-eval`` step, in f32 and in bf16), beta_hat
 of the KB, KB-w
 and KB-sca attacks, and the ROC summary (auc, p_e, wauc, pmd_5fp, tau0) of
-``produce_roc`` per alpha and detector.
+``produce_roc`` per alpha and detector.  ``p128_b0.npz`` holds, on the
+same images (not stored again), P(stego) of both LSBR B0 runs in f32 (and
+in bf16 on the covers), the OLS taps fitted on the 64 covers and OLS
+beta_hat, and the ``produce_roc`` summary of the two B0 labels of ``roc
+--b0`` and of OLS; and a color4 OLS case on seeded synthetic RGB covers
+and their stego (the pixels, the taps and beta_hat).
 
     python scripts/export_torch_weights.py                 # the defaults
     python scripts/export_torch_weights.py --run models/unet/HILLR/<run>
+    python scripts/export_torch_weights.py --run models/b0/HILLR/<run>
     python scripts/export_torch_weights.py --out /tmp/w --no-golden
 
 The weights directory is not named ``models``: the card copy drops every
@@ -44,10 +55,22 @@ DEFAULT_RUNS = [
     "models/unet/dropout/"
     "260817015643-tpu-unet_2-grayscale_l1_lr_0.0001_dr_0.1",
 ]
+# the two LSBR B0 runs ``roc --b0`` uses (strided with parity features;
+# no stem stride with the LSBr-reference plane); HILLR on demand
+DEFAULT_B0_RUNS = [
+    "models/b0/LSBR/260817154325-tpu-b0-alpha_mix0.1-0.05-0.01_grayscale_"
+    "crossentropy_lr_2e-05_dr_0.2",
+    "models/b0/LSBR/260818140316-tpu-b0-nostride-alpha_mix0.1-0.05-0.01_"
+    "grayscale_crossentropy_lr_2e-05_dr_0.2",
+]
 P128 = REPO / "data_ablation" / "p128"
 GOLDEN_ALPHAS = (0.1, 0.01)
 GOLDEN_DETECTORS = ("KB", "KB-w", "KB-sca", "UNet")
 GOLDEN_STATS = ("auc", "p_e", "wauc", "pmd_5fp", "tau0")
+# the color4 OLS case: R predicted from G's 9 taps and R's 8 neighbours,
+# on seeded smooth RGB covers and their LSB replacement in R
+COLOR_CHANNELS = (1, 0)
+COLOR_ALPHA = 0.4
 
 
 def _cpu_jax():
@@ -73,19 +96,71 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     return out
 
 
-def export_run(run_dir: pathlib.Path, out_root: pathlib.Path) -> pathlib.Path:
-    """Restore ``<root>/<method>/<run>`` with the JAX package's loader and
-    write ``<out_root>/<method>/<run>/{config.json, best.npz}``."""
-    _cpu_jax()
-    from wsunet_tpu.ws.unet_eval import load_pretrained_unet
+def _is_b0(run_dir: pathlib.Path) -> bool:
+    from wsunet_tpu.train.checkpoint import load_config
+    return load_config(run_dir).get("network") == "b0"
 
+
+def export_run(run_dir: pathlib.Path, out_root: pathlib.Path) -> pathlib.Path:
+    """Restore ``<root>/<method>/<run>`` (a U-Net or a B0) with the JAX
+    package's loader and write ``<out_root>/<method>/<run>/{config.json,
+    best.npz}``."""
+    _cpu_jax()
     run_dir = pathlib.Path(run_dir)
-    _, variables, _ = load_pretrained_unet(run_dir.parent, run_dir.name)
+    if _is_b0(run_dir):
+        from wsunet_tpu.detect.b0_eval import load_pretrained_b0 as load
+    else:
+        from wsunet_tpu.ws.unet_eval import load_pretrained_unet as load
+    variables = load(run_dir.parent, run_dir.name)[1]
+    arrays = flatten_tree(variables["params"])
+    if variables.get("batch_stats"):
+        arrays.update(flatten_tree(variables["batch_stats"], "batch_stats"))
     dst = pathlib.Path(out_root) / run_dir.parent.name / run_dir.name
     dst.mkdir(parents=True, exist_ok=True)
     shutil.copyfile(run_dir / "config.json", dst / "config.json")
-    np.savez(dst / "best.npz", **flatten_tree(variables["params"]))
+    np.savez(dst / "best.npz", **arrays)
     return dst
+
+
+def _golden_sets(jax, names):
+    """The p128 covers and their LSBr stego at GOLDEN_ALPHAS, as
+    ``simulate`` draws them: {set name: uint8 [64, 128, 128]}."""
+    import jax.numpy as jnp
+
+    from wsunet_tpu.data import load_images
+    from wsunet_tpu.data.simulate import image_key, simulate
+
+    covers = load_images(P128, names)
+    sets = {"cover": covers}
+    for alpha in GOLDEN_ALPHAS:
+        sets[str(alpha)] = np.stack([np.asarray(simulate(
+            jnp.asarray(covers[i][None]), "LSBr", alpha,
+            image_key(name)))[0] for i, name in enumerate(names)])
+    return sets
+
+
+def color_sets(n: int = 8, size: int = 64, seed: int = 7) -> np.ndarray:
+    """Seeded smooth RGB covers and their stego (LSB replacement in R at
+    COLOR_ALPHA), as uint8 [2, n, size, size, 4] planes [R, G, B, Y] (Y
+    by the BT.601 fixed-point rounding of ``io.imread_gray_u8``)."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(0, 40, (n, size + 4, size + 4, 3)).cumsum(1).cumsum(2)
+    base = base / np.abs(base).max(axis=(1, 2, 3), keepdims=True) * 90 + 120
+    rgb = np.clip(base + rng.normal(0, 2, base.shape), 0, 255)
+    cover = rgb[:, 2:-2, 2:-2].astype(np.uint8)
+    stego = cover.copy()
+    hit = rng.random(stego.shape[:3]) < COLOR_ALPHA
+    bits = rng.integers(0, 2, stego.shape[:3], dtype=np.uint8)
+    stego[..., 0] = np.where(hit, (stego[..., 0] & 0xFE) | bits,
+                             stego[..., 0])
+
+    def rgby(x):
+        r, g, b = (x[..., i].astype(np.int64) for i in range(3))
+        y = (9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15
+        return np.concatenate([x, y.clip(0, 255).astype(np.uint8)[..., None]],
+                              axis=-1)
+
+    return np.stack([rgby(cover), rgby(stego)])
 
 
 def golden(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
@@ -94,22 +169,15 @@ def golden(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
     import jax.numpy as jnp
     import pandas as pd
 
-    from wsunet_tpu.data import load_images, precovers
-    from wsunet_tpu.data.simulate import image_key, simulate
+    from wsunet_tpu.data import precovers
     from wsunet_tpu.detect import produce_roc
     from wsunet_tpu.ops import NAMED_FILTERS_2D, ws_attack, ws_attack_sca
     from wsunet_tpu.ops import ws_estimate_unet
     from wsunet_tpu.ws.unet_eval import infer_unet, load_pretrained_unet
 
     run_dir = pathlib.Path(run_dir)
-    df = precovers(P128)
-    names = list(df["name"])
-    covers = load_images(P128, names)
-    sets = {"cover": covers}
-    for alpha in GOLDEN_ALPHAS:
-        sets[str(alpha)] = np.stack([np.asarray(simulate(
-            jnp.asarray(covers[i][None]), "LSBr", alpha,
-            image_key(name)))[0] for i, name in enumerate(names)])
+    names = list(precovers(P128)["name"])
+    sets = _golden_sets(jax, names)
 
     def unet_step(dtype):                # ws/unet_eval._predict_frame
         model, variables, _ = load_pretrained_unet(
@@ -174,23 +242,117 @@ def golden(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
     return out
 
 
+def golden_b0(b0_runs, out: pathlib.Path) -> pathlib.Path:
+    """The B0 and OLS golden file, on the images of ``p128_lsbr.npz``,
+    computed with the JAX package on the CPU."""
+    jax = _cpu_jax()
+    import jax.numpy as jnp
+    import pandas as pd
+
+    from wsunet_tpu.cli import b0_label
+    from wsunet_tpu.data import precovers
+    from wsunet_tpu.detect import produce_roc
+    from wsunet_tpu.detect.b0_eval import infer_b0, load_pretrained_b0
+    from wsunet_tpu.ops import ws_attack
+    from wsunet_tpu.ops.ols import (fit_ols, fit_ols_color,
+                                    ols_color_kernels, ols_color_predict,
+                                    ols_kernel2d)
+
+    names = list(precovers(P128)["name"])
+    sets = _golden_sets(jax, names)
+    pixels = np.stack(list(sets.values()))
+
+    def per_set(step, sets=pixels):
+        # the eval sweeps' batch of 8
+        return np.stack([np.concatenate([np.asarray(step(jnp.asarray(
+            p[i:i + 8]))) for i in range(0, len(p), 8)]) for p in sets])
+
+    arrays, labels = {}, []
+    for run in map(pathlib.Path, b0_runs):
+        # f32 on every set; bf16 (slow on the CPU) on the covers
+        for prefix, dtype, images in (("prob", jnp.float32, pixels),
+                                      ("prob_bf16", jnp.bfloat16,
+                                       pixels[:1])):
+            model, variables, config = load_pretrained_b0(
+                run.parent, run.name, compute_dtype=dtype)
+            ref = bool(config.get("lsbr_reference"))
+            step = jax.jit(lambda x, m=model, v=variables, r=ref: infer_b0(
+                m, v, x.astype(jnp.float32), use_lsbr_reference=r))
+            arrays[f"{prefix}/{b0_label(config)}"] = \
+                per_set(step, images).astype(np.float32)
+        labels.append(b0_label(config))
+
+    covers = pixels[0].astype(np.float32)
+    taps = fit_ols(covers)
+    kernel = ols_kernel2d(covers)[::-1, ::-1]    # as ws/estimate.run
+    arrays["beta/OLS"] = per_set(jax.jit(
+        lambda x: ws_attack(x, pixel_kernel=kernel))).astype(np.float32)
+
+    detectors = labels + ["OLS"]
+    roc = np.zeros((len(GOLDEN_ALPHAS), len(detectors), len(GOLDEN_STATS)))
+    for a, alpha in enumerate(GOLDEN_ALPHAS):
+        frames = []
+        for s, (method, alpha_s) in ((0, ("Cover", 0.0)),
+                                     (a + 1, ("LSBR", alpha))):
+            for label in labels:
+                frames.append(pd.DataFrame({
+                    "name": names, "stego_method": method, "alpha": alpha_s,
+                    "score": arrays[f"prob/{label}"][s], "model_name": label}))
+            frames.append(pd.DataFrame({
+                "name": names, "stego_method": method, "alpha": alpha_s,
+                "beta_hat": arrays["beta/OLS"][s].astype("float64"),
+                "model_name": "OLS"}))
+        summary = produce_roc(pd.concat(frames)).drop_duplicates(
+            ["model_name"]).set_index("model_name")
+        for d, det in enumerate(detectors):
+            roc[a, d] = [summary.loc[det, k] for k in GOLDEN_STATS]
+
+    color = color_sets()
+    kernels = ols_color_kernels(color[0].astype(np.float32), COLOR_CHANNELS)
+    plane = COLOR_CHANNELS[-1]
+
+    @jax.jit
+    def color_step(x4):
+        x_hat = ols_color_predict(x4.astype(jnp.float32), kernels)
+        return ws_attack(x4[..., plane], pixel_estimator=lambda _: x_hat)
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(
+        out, names=np.array(names), runs=np.array([r.name for r in map(
+            pathlib.Path, b0_runs)]), labels=np.array(labels),
+        detectors=np.array(detectors), stats=np.array(GOLDEN_STATS),
+        alphas=np.array(GOLDEN_ALPHAS), sets=np.array(list(sets)),
+        **arrays, **{"ols/taps": taps}, roc=roc,
+        **{"color/pixels": color,
+           "color/channels": np.array(COLOR_CHANNELS),
+           "color/taps": fit_ols_color(color[0].astype(np.float32),
+                                       COLOR_CHANNELS),
+           "color/beta": np.stack([np.asarray(color_step(jnp.asarray(c)))
+                                   for c in color]).astype(np.float32)})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", action="append", type=pathlib.Path,
-                    help="a run directory <root>/<method>/<run> (repeat; "
-                         "default: the committed LSBR and dropout runs)")
+                    help="a run directory <root>/<family>/<method>/<run>, "
+                         "family unet or b0 (repeat; default: the committed "
+                         "U-Net LSBR and dropout runs and B0 LSBR runs)")
     ap.add_argument("--out", type=pathlib.Path, default=REPO / "weights",
                     help="output root (default: weights/)")
     ap.add_argument("--no-golden", action="store_true",
-                    help="skip weights/golden/p128_lsbr.npz")
+                    help="skip the golden files under weights/golden")
     args = ap.parse_args(argv)
-    runs = args.run or [REPO / r for r in DEFAULT_RUNS]
+    runs = args.run or [REPO / r for r in DEFAULT_RUNS + DEFAULT_B0_RUNS]
     for run in runs:
-        print(f"exported {export_run(run, args.out / 'unet')}")
+        family = "b0" if _is_b0(run) else "unet"
+        print(f"exported {export_run(run, args.out / family)}")
     if not args.no_golden:
-        out = golden(REPO / DEFAULT_RUNS[0],
-                     args.out / "golden" / "p128_lsbr.npz")
-        print(f"wrote {out}")
+        for out in (golden(REPO / DEFAULT_RUNS[0],
+                           args.out / "golden" / "p128_lsbr.npz"),
+                    golden_b0([REPO / r for r in DEFAULT_B0_RUNS],
+                              args.out / "golden" / "p128_b0.npz")):
+            print(f"wrote {out}")
     return 0
 
 

@@ -104,7 +104,8 @@ def test_committed_export_equals_a_fresh_one(fresh, method):
     # and it is the Orbax checkpoint's params, unflattened
     _, variables, _ = jax_load(REPO / "models" / "unet" / method,
                                RUNS[method])
-    tree = load_params(committed)
+    tree, stats = load_params(committed)
+    assert stats == {}
     jax.tree.map(np.testing.assert_array_equal, tree,
                  jax.tree.map(np.asarray, variables["params"]))
 
@@ -118,6 +119,50 @@ def test_committed_golden_equals_a_fresh_one(fresh):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         assert a["pixels"].shape == (3, 64, 128, 128)
         assert str(a["run"]) == RUNS["LSBR"]
+
+
+B0_RUNS = [
+    "260817154325-tpu-b0-alpha_mix0.1-0.05-0.01_grayscale_crossentropy_lr_"
+    "2e-05_dr_0.2",
+    "260818140316-tpu-b0-nostride-alpha_mix0.1-0.05-0.01_grayscale_"
+    "crossentropy_lr_2e-05_dr_0.2",
+]
+
+
+@pytest.mark.parametrize("run", B0_RUNS)
+def test_committed_b0_export_equals_a_fresh_one(fresh, run):
+    """The B0 exports (parameters and, under ``batch_stats/``, the running
+    statistics) equal a fresh export, and ``load_params`` gives back the
+    Orbax checkpoint's two trees."""
+    from wsunet_tpu.detect.b0_eval import load_pretrained_b0 as jax_load_b0
+
+    committed = REPO / "weights" / "b0" / "LSBR" / run
+    new = fresh / "b0" / "LSBR" / run
+    assert load_config(committed) == load_config(new)
+    with np.load(committed / "best.npz") as a, np.load(new / "best.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert any(k.startswith("batch_stats/") for k in a.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    _, variables, _ = jax_load_b0(REPO / "models" / "b0" / "LSBR", run)
+    params, stats = load_params(committed)
+    jax.tree.map(np.testing.assert_array_equal, params,
+                 jax.tree.map(np.asarray, variables["params"]))
+    jax.tree.map(np.testing.assert_array_equal, stats,
+                 jax.tree.map(np.asarray, dict(variables["batch_stats"])))
+
+
+def test_committed_b0_golden_equals_a_fresh_one(fresh):
+    committed = REPO / "weights" / "golden" / "p128_b0.npz"
+    with np.load(committed) as a, \
+            np.load(fresh / "golden" / "p128_b0.npz") as b, \
+            np.load(REPO / "weights" / "golden" / "p128_lsbr.npz") as c:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert list(a["runs"]) == B0_RUNS
+        assert (a["names"] == c["names"]).all()
+        assert a["prob/ns-r-B0_mix0.1-0.05-0.01"].shape == (3, 64)
 
 
 def _fake_run(root, method, name, loss, params=True, **extra):
@@ -162,7 +207,8 @@ def test_load_params_unflattens_and_missing_runs_raise(tmp_path):
     np.savez(run / "best.npz", **{"a/b/kernel": np.ones((2, 3), np.float32),
                                   "a/b/bias": np.zeros(3, np.float32),
                                   "top": np.arange(2, dtype=np.float32)})
-    tree = load_params(run)
+    tree, stats = load_params(run)
+    assert stats == {}
     assert set(tree) == {"a", "top"} and set(tree["a"]["b"]) == \
         {"kernel", "bias"}
     assert tree["a"]["b"]["kernel"].shape == (2, 3)

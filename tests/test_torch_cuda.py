@@ -310,3 +310,94 @@ def test_trained_path_filters_on_card_match_golden(cuda, model, kw, tol):
     assert fused_ws.launches == (0 if kw.get("sca") else 24)
     np.testing.assert_allclose(got.reshape(3, 64), gold[f"beta/{model}"],
                                rtol=tol[0], atol=tol[1])
+
+
+# the JAX package's B0 and OLS numbers on the same images
+GOLDEN_B0 = REPO / "weights" / "golden" / "p128_b0.npz"
+B0_DIR = REPO / "weights" / "b0" / "LSBR"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1])
+def test_trained_b0_on_card_matches_golden(cuda, index):
+    """Both exported LSBR B0 runs, f32 with TF32 off, on the 192 golden
+    images in batches of 8: P(stego) within 1e-4 of JAX's
+    (tests/test_torch_b0.py's bound)."""
+    from wsunet_tpu_torch.detect import infer_b0, load_pretrained_b0
+
+    gold = np.load(GOLDEN_B0)
+    run, label = str(gold["runs"][index]), str(gold["labels"][index])
+    model, config = load_pretrained_b0(B0_DIR, run)
+    assert next(model.parameters()).is_cuda
+    px = np.load(GOLDEN)["pixels"].reshape(-1, 128, 128)
+    got = torch.cat([infer_b0(model, px[i:i + 8],
+                              use_lsbr_reference=config["lsbr_reference"])
+                     for i in range(0, len(px), 8)])
+    np.testing.assert_allclose(got.cpu().numpy().reshape(3, 64),
+                               gold[f"prob/{label}"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b0_card_matches_cpu_at_512(cuda, index, dtype):
+    """Both runs at 512x512 (B=2, seeded smooth covers and their LSB
+    replacement): the card's f32 within 1e-4 of the CPU's f32; the card's
+    bf16 no further from the CPU's f32 than 1.25 times the JAX package's
+    own bf16 distance from its f32 on the golden covers (bf16 loses the LSB
+    signal in both packages alike; one image sets the maximum)."""
+    from wsunet_tpu_torch.detect import infer_b0, load_pretrained_b0
+
+    gold = np.load(GOLDEN_B0)
+    run, label = str(gold["runs"][index]), str(gold["labels"][index])
+    rng = np.random.default_rng(index)
+    yy, xx = np.mgrid[0:512, 0:512]
+    img = 128 + 60 * np.sin(0.03 * yy) * np.cos(0.05 * xx) + \
+        rng.normal(0, 2, (512, 512))
+    cover = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    flip = rng.random(cover.shape) < 0.2
+    stego = np.where(flip, cover ^ 1, cover).astype(np.uint8)
+    px = np.stack([cover, stego])
+    cpu, config = load_pretrained_b0(B0_DIR, run, device="cpu")
+    want = infer_b0(cpu, px, use_lsbr_reference=config["lsbr_reference"],
+                    device="cpu").numpy()
+    model, _ = load_pretrained_b0(B0_DIR, run, compute_dtype=dtype)
+    got = infer_b0(model, px,
+                   use_lsbr_reference=config["lsbr_reference"]).cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    else:
+        bound = np.abs(gold[f"prob_bf16/{label}"] -
+                       gold[f"prob/{label}"][0]).max()
+        assert np.isfinite(got).all() and \
+            np.abs(got - want).max() <= 1.25 * bound
+
+
+@pytest.mark.cuda
+def test_ols_on_card_matches_golden(cuda):
+    """OLS fitted on the card (exact float64 normal equations) against
+    JAX's taps and beta_hat (tests/test_torch_ols.py's bounds)."""
+    from wsunet_tpu_torch.ops import ols
+
+    gold = np.load(GOLDEN_B0)
+    px = torch.from_numpy(np.load(GOLDEN)["pixels"]).to(cuda)
+    taps = ols.fit_ols(px[0])
+    np.testing.assert_allclose(taps, gold["ols/taps"], rtol=0, atol=2e-3)
+    kernel = ols.ols_kernel2d(px[0])[::-1, ::-1]
+    beta = attack_batches(list(px.reshape(-1, 8, 128, 128)),
+                          pixel_kernel=kernel)
+    np.testing.assert_allclose(beta.reshape(3, 64), gold["beta/OLS"],
+                               rtol=0, atol=2e-4)
+    channels = tuple(gold["color/channels"])
+    x4 = torch.from_numpy(gold["color/pixels"]).to(cuda).permute(
+        0, 1, 4, 2, 3)
+    kernels = ols.ols_color_kernels(x4[0], channels)
+    np.testing.assert_allclose(ols.fit_ols_color(x4[0], channels),
+                               gold["color/taps"], rtol=0, atol=1e-2)
+    beta = torch.stack([ws_attack(
+        x[:, channels[-1]],
+        pixel_estimator=lambda _, x=x: ols.ols_color_predict(x.float(),
+                                                             kernels))
+        for x in x4])
+    np.testing.assert_allclose(beta.cpu().numpy(), gold["color/beta"],
+                               rtol=0, atol=1e-3)

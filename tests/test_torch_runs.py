@@ -146,12 +146,8 @@ def test_cli_errors_are_one_line(cat, tmp_path, capsys):
             "cpu"]
     with pytest.raises(SystemExit, match="^unet-eval: no model for"):
         torch_main(["unet-eval", *base, "--model-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="^roc: the B0 detector"):
-        torch_main(["roc", *base, "--b0"])
-    with pytest.raises(SystemExit, match="^ws-eval: the OLS predictor"):
-        torch_main(["ws-eval", *base, "--models", "OLS"])
-    with pytest.raises(SystemExit, match="^ws-eval: channels"):
-        torch_main(["ws-eval", *base, "--channels", "0"])
+    with pytest.raises(SystemExit, match="^detector-eval: no model for"):
+        torch_main(["detector-eval", *base, "--model-dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="^ws-eval: no files.csv"):
         torch_main(["ws-eval", "--data", str(tmp_path), "--results",
                     str(tmp_path), "--device", "cpu"])
@@ -161,8 +157,15 @@ def test_cli_errors_are_one_line(cat, tmp_path, capsys):
     assert "skipping UNet l1/dropout" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         torch_main(["filters-eval"])   # not ported yet: argparse refuses
-    with pytest.raises(UserError):
-        ws_run(cat, None, None, "KB", channels=(0, 3), device="cpu")
+    # roc --b0, OLS and colour planes are served since the B0 slice
+    # (tests/test_torch_b0.py, tests/test_torch_ols.py); colour OLS on this
+    # grayscale catalog has equal planes, so exactly singular equations
+    with pytest.raises(SystemExit, match="^ws-eval: OLS: the normal "
+                                         "equations are singular"):
+        torch_main(["ws-eval", *base, "--models", "OLS", "--channels", "0",
+                    "3"])
+    with pytest.raises(UserError, match="singular"):
+        ws_run(cat, None, None, "OLS", channels=(0, 3), device="cpu")
 
 
 def test_fast_conv_reaches_b1_from_the_cli(cat, tmp_path, monkeypatch):

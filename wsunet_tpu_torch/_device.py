@@ -81,3 +81,14 @@ def to_device(batch, dev: torch.device) -> torch.Tensor:
             _uploads[dev] = PinnedUpload(dev)
         return _uploads[dev](batch)
     return torch.as_tensor(batch, device=dev)
+
+
+def to_model_device(model: torch.nn.Module, x, device) -> torch.Tensor:
+    """A model's input ``x`` on ``device`` (None = CUDA), which must be
+    the device the model's parameters are on."""
+    dev = resolve_device(device)
+    p = next(model.parameters())
+    if p.device.type != dev.type:
+        raise UserError(f"the model is on {p.device}, the call asks for "
+                        f"{dev}; move it with model.to(device)")
+    return to_device(x, dev)

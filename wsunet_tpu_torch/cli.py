@@ -1,19 +1,24 @@
 """Command-line interface (port of part of ``wsunet_tpu/cli.py``).
 
-    python -m wsunet_tpu_torch ws-eval     WS attack sweep
-    python -m wsunet_tpu_torch unet-eval   U-Net inference + WS error
-    python -m wsunet_tpu_torch roc         ROC/AUC/P_E over WS detectors
+    python -m wsunet_tpu_torch ws-eval        WS attack sweep
+    python -m wsunet_tpu_torch unet-eval      U-Net inference + WS error
+    python -m wsunet_tpu_torch detector-eval  B0 detector scores
+    python -m wsunet_tpu_torch roc            ROC/AUC/P_E over WS and B0
+                                              detectors
 
 The flags and defaults are the JAX CLI's, and the commands write the same
 files (``estimation/ws_sweep_<train>.csv``, ``estimation/ws_<method>.csv``,
-``detection/{auc,roc}_<alpha>.csv`` and ``roc_<alpha>.png``), with these
-differences: ``--model-dir`` and ``--unet-model-dir`` default to
-``weights/unet`` (the exported runs, ``scripts/export_torch_weights.py``),
-``--device`` picks the device (default CUDA), ``--fast-conv`` runs the
-U-Net's 3x3 convs through kernel B1 instead of cuDNN, and ``roc --b0`` is
-refused (the B0 detector is not ported yet, nor are its flags).  pandas
-and matplotlib are imported by the commands; the other subcommands of the
-JAX CLI do not exist yet.
+``detection/b0.csv``, ``detection/{auc,roc}_<alpha>.csv`` and
+``roc_<alpha>.png``), with these differences: the model directories
+default to the exported runs (``--model-dir`` / ``--unet-model-dir``
+``weights/unet``, ``detector-eval --model-dir`` / ``--b0-model-dir``
+``weights/b0``; ``scripts/export_torch_weights.py``), ``--device`` picks
+the device (default CUDA), and ``--fast-conv`` runs the U-Net's 3x3 convs
+through kernel B1 instead of cuDNN.  ``ws-eval --models OLS`` fits the OLS
+predictor on the covers, in the colour layouts for two or three
+``--channels``.  pandas and matplotlib are imported by the commands; the
+other subcommands of the JAX CLI (``filters-eval``, training, analyses,
+``simulate``, ...) do not exist yet.
 """
 
 import argparse
@@ -23,6 +28,7 @@ import sys
 from .utils.errors import UserError
 
 WEIGHTS = pathlib.Path("weights/unet")
+B0_WEIGHTS = pathlib.Path("weights/b0")
 
 
 def _common(p):
@@ -62,8 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weighted", type=int, default=0, choices=[-1, 0, 1])
     p.add_argument("--correct-bias", action="store_true")
     p.add_argument("--channels", nargs="+", type=int, default=[3],
-                   help="[R,G,B,Y] planes: attacked channel last (only the "
-                        "luminance, 3, is ported)")
+                   help="[R,G,B,Y] planes: attacked channel last; two or "
+                        "three channels select the color4/color8 OLS layout")
 
     p = sub.add_parser("unet-eval",
                        help="U-Net inference + WS prediction error")
@@ -72,17 +78,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stego-method", default="LSBR",
                    help="training method of the model (dropout/LSBR/HILLR)")
 
-    p = sub.add_parser("roc", help="ROC/AUC/P_E over WS detectors")
+    p = sub.add_parser("detector-eval", help="B0 detector scores")
+    _common(p)
+    p.add_argument("--model-dir", type=pathlib.Path, default=B0_WEIGHTS)
+    p.add_argument("--stego-method", default="LSBR")
+    p.add_argument("--no-stem-stride", action="store_true")
+    p.add_argument("--lsbr-reference", action="store_true")
+
+    p = sub.add_parser("roc", help="ROC/AUC/P_E over WS + B0 detectors")
     _common(p)
     p.add_argument("--unet-model-dir", type=pathlib.Path, default=WEIGHTS)
+    p.add_argument("--b0-model-dir", type=pathlib.Path, default=B0_WEIGHTS)
     p.add_argument("--train-method", default="LSBR")
     p.add_argument("--stego-methods", nargs="+", default=["LSBR"],
                    help="stego methods to build curves for (e.g. HILLR)")
     p.add_argument("--alphas", nargs="+", type=float, default=[.1, .05, .01])
     p.add_argument("--models", nargs="+",
                    default=["AVG", "KB", "KB-w", "KB-sca", "UNet"])
-    p.add_argument("--b0", action="store_true",
-                   help="include B0 detectors (not ported yet)")
+    p.add_argument("--b0", action="store_true", help="include B0 detectors")
+    p.add_argument("--b0-train-alpha", type=float, default=None,
+                   help="registry filter on the B0 training alpha (labels "
+                        "always come from the model's own config)")
     return ap
 
 
@@ -118,6 +134,17 @@ def _dispatch(args):
                        take_num_images=args.take, fast_conv=args.fast_conv,
                        device=args.device)
         out = args.results / "estimation" / f"ws_{args.stego_method}.csv"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res.to_csv(out, index=False)
+        print(f"output saved to {out}")
+    elif cmd == "detector-eval":
+        from .detect import b0_run
+        res = b0_run(args.data, args.model_dir, args.stego_method,
+                     no_stem_stride=args.no_stem_stride,
+                     lsbr_reference=args.lsbr_reference,
+                     batch_size=args.batch_size, split=args.split,
+                     take_num_images=args.take, device=args.device)
+        out = args.results / "detection" / "b0.csv"
         out.parent.mkdir(parents=True, exist_ok=True)
         res.to_csv(out, index=False)
         print(f"output saved to {out}")
@@ -180,16 +207,61 @@ def _ws_sweep(args):
     return res
 
 
+def b0_label(config: dict) -> str:
+    """Detector label from the model's own training config, as the JAX
+    CLI builds it: ``ns-`` (no stem stride), ``r-`` (LSBr reference),
+    ``B0``, ``-<method>`` unless LSBR, ``_<alpha>`` (``mix<a>-<b>-...`` for a
+    rate mixture), e.g. ``ns-r-B0_mix0.1-0.05-0.01``."""
+    prefix = ("ns-" if config.get("no_stem_stride") else "") + \
+        ("r-" if config.get("lsbr_reference") else "")
+    alpha = config.get("alpha")
+    if isinstance(alpha, (list, tuple)):
+        alpha = "mix" + "-".join(str(a) for a in alpha)
+    method = config.get("stego_method", "LSBR")
+    infix = "" if method == "LSBR" else f"-{method}"
+    return f"{prefix}B0{infix}_{alpha}"
+
+
+def _b0_frames(args) -> list:
+    """The rows of both B0 configurations (strided; no stem stride with
+    the LSBr reference) trained on --train-method, labelled by
+    ``b0_label``; a configuration without a run is skipped with a note."""
+    from .detect import b0_run
+    from .train.checkpoint import load_config
+    from .utils.registry import get_model_name
+
+    frames = []
+    for no_stride, lsbr_ref in [(False, False), (True, True)]:
+        filters = dict(no_stem_stride=no_stride, lsbr_reference=lsbr_ref)
+        if args.b0_train_alpha is not None:
+            filters["alpha"] = args.b0_train_alpha
+        try:
+            name = get_model_name(args.b0_model_dir, args.train_method,
+                                  **filters)
+            res = b0_run(args.data, args.b0_model_dir, args.train_method,
+                         model_name=name, no_stem_stride=no_stride,
+                         lsbr_reference=lsbr_ref, batch_size=args.batch_size,
+                         split=args.split, take_num_images=args.take,
+                         device=args.device)
+        except (UserError, FileNotFoundError) as e:
+            print(f"skipping B0 ns={no_stride} r={lsbr_ref}: {e}",
+                  file=sys.stderr)
+            continue
+        config = load_config(args.b0_model_dir / args.train_method / name)
+        res = res[(res["stego_method"].isna()) |
+                  (res["alpha"].isin(args.alphas))].copy()
+        res["model_name"] = b0_label(config)
+        res["score"] = res["output"]
+        frames.append(res)
+    return frames
+
+
 def _cmd_roc(args):
     import pandas as pd
 
     from .detect import produce_roc
     from .utils.registry import get_model_name
     from .ws import ws_run
-
-    if args.b0:
-        raise UserError("the B0 detector is not ported yet (roadmap A6); "
-                        "run roc without --b0")
     # "UNet" is the --train-method model on every eval method; another
     # method of --stego-methods with its own trained model joins as
     # "UNet_<method>", with its own cover pass
@@ -226,6 +298,8 @@ def _cmd_roc(args):
                         batch_size=args.batch_size,
                         split=args.split, take_num_images=args.take,
                         device=args.device))
+    if args.b0:
+        frames += _b0_frames(args)
 
     res = pd.concat(frames).reset_index(drop=True)
     res["stego_method"] = res["stego_method"].fillna("Cover")

@@ -1,4 +1,6 @@
 from .unet import UNet, get_model, init_unet
-from .convert import unet_state_dict_from_flax
+from .b0 import EfficientNetB0, get_b0
+from .convert import b0_state_dict_from_flax, unet_state_dict_from_flax
 
-__all__ = ["UNet", "get_model", "init_unet", "unet_state_dict_from_flax"]
+__all__ = ["UNet", "get_model", "init_unet", "EfficientNetB0", "get_b0",
+           "b0_state_dict_from_flax", "unet_state_dict_from_flax"]

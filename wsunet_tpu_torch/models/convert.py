@@ -1,7 +1,10 @@
-"""Flax U-Net parameters -> a state dict of the torch ``UNet``.
+"""Flax parameters -> state dicts of the torch ``UNet`` and
+``EfficientNetB0``.
 
 Takes numpy only (a nested dict of arrays, as ``jax.tree.map(np.asarray,
 params)`` gives it), so it runs where JAX is not installed.
+
+U-Net (``unet_state_dict_from_flax``):
 
 - 3x3 and 1x1 conv kernels: Flax HWIO -> torch OIHW.
 - The transposed convs (Flax ``nn.ConvTranspose``, kernel (2, 2, in, out),
@@ -11,6 +14,8 @@ params)`` gives it), so it runs where JAX is not installed.
   the gradient of a convolution, so output pixel (2i+a, 2j+b) takes Flax
   tap (1-a, 1-b).  ``tests/test_torch_unet.py`` fixes this against JAX on
   random weights.
+
+B0 (``b0_state_dict_from_flax``): see its docstring.
 """
 
 import numpy as np
@@ -46,4 +51,42 @@ def unet_state_dict_from_flax(params: dict) -> dict:
             for conv, p in sub.items():
                 sd[f"{name}.{conv}.weight"] = _oihw(p["kernel"])
                 sd[f"{name}.{conv}.bias"] = _vec(p["bias"])
+    return sd
+
+
+def b0_state_dict_from_flax(params: dict, batch_stats: dict = None) -> dict:
+    """Map the Flax ``EfficientNetB0`` variables (``params`` and, with
+    batch norm, ``batch_stats``) to a ``state_dict`` for
+    ``models.b0.EfficientNetB0``.  Module paths keep their names ('.'
+    joined); the leaves map as
+
+    - conv ``kernel`` HWIO -> ``weight`` OIHW (the depthwise [k, k, 1, mid]
+      becomes [mid, 1, k, k]); the Dense ``kernel`` [in, out] -> the
+      Linear ``weight`` [out, in];
+    - norm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+    - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
+      ``running_var`` (plus ``num_batches_tracked``, which torch keeps).
+    """
+    sd = {}
+
+    def walk(tree, path, stats):
+        for name, value in tree.items():
+            if isinstance(value, dict) or hasattr(value, "items"):
+                walk(dict(value), path + [name], stats)
+                continue
+            arr = np.asarray(value, np.float32)
+            if stats:
+                leaf = {"mean": "running_mean", "var": "running_var"}[name]
+                sd[".".join(path + ["num_batches_tracked"])] = \
+                    torch.tensor(0)
+                sd[".".join(path + [leaf])] = _vec(arr)
+            elif name == "kernel":
+                sd[".".join(path + ["weight"])] = _oihw(arr) \
+                    if arr.ndim == 4 else torch.from_numpy(np.array(arr.T))
+            else:
+                sd[".".join(path + [{"scale": "weight",
+                                     "bias": "bias"}[name]])] = _vec(arr)
+
+    walk(params, [], False)
+    walk(batch_stats or {}, [], True)
     return sd

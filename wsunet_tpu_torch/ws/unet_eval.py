@@ -20,7 +20,7 @@ import typing
 import numpy as np
 import torch
 
-from .._device import resolve_device, to_device
+from .._device import resolve_device, to_model_device
 from ..data.transforms import center_crop
 from ..models import get_model, unet_state_dict_from_flax
 from ..ops.ws import ws_estimate_unet
@@ -29,20 +29,11 @@ from ..utils.errors import UserError
 from ..utils.registry import get_model_name
 
 
-def _to_device(model: torch.nn.Module, x, device) -> torch.Tensor:
-    dev = resolve_device(device)
-    p = next(model.parameters())
-    if p.device.type != dev.type:
-        raise UserError(f"the model is on {p.device}, the call asks for "
-                        f"{dev}; move it with model.to(device)")
-    return to_device(x, dev)
-
-
 @torch.no_grad()
 def infer_unet(model, x, device=None) -> torch.Tensor:
     """[B, H, W] f32 pixels (0..255) -> [B, 510, 510] prediction
     (0..255), on ``device`` (None = CUDA)."""
-    x = _to_device(model, x, device).to(torch.float32)
+    x = to_model_device(model, x, device).to(torch.float32)
     xc = center_crop(x, 512)[:, None] / 255.0
     y = model(xc)
     return y[:, 0, 1:-1, 1:-1].to(torch.float32) * 255.0
@@ -52,7 +43,7 @@ def infer_unet(model, x, device=None) -> torch.Tensor:
 def predict_batch(model, pixels_u8, device=None
                   ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """uint8 [B, H, W] -> (beta_hat [B], l1 [B]), on ``device``."""
-    x = _to_device(model, pixels_u8, device).to(torch.float32)
+    x = to_model_device(model, pixels_u8, device).to(torch.float32)
     x_hat = infer_unet(model, x, device=x.device)
     return ws_estimate_unet(center_crop(x, 512), x_hat)
 
@@ -72,7 +63,7 @@ def load_pretrained_unet(model_path: pathlib.Path, model_name: str,
     config = load_config(exp_dir)
     model = get_model(config["network"], in_channels=1, out_channels=1,
                       compute_dtype=compute_dtype, fast_conv=fast_conv)
-    model.load_state_dict(unet_state_dict_from_flax(load_params(exp_dir)))
+    model.load_state_dict(unet_state_dict_from_flax(load_params(exp_dir)[0]))
     return model.to(dev).eval(), config
 
 
