@@ -77,6 +77,25 @@ kernel against its plain PyTorch version:
    clock, device ms by CUDA-graph replay, peak memory, GMACs an image
    from the layer shapes and the share of the card's peak, and the top
    kernels from torch.profiler at B=32.
+11. the U-Net training path (``train.train_unet``), which runs no TPU
+   kernel (the JAX trainer trains on XLA convs and the plain WS loss; the
+   phase checks that B1 and B2 do not launch): (a) the step on the
+   committed LSBR weights with the JAX trainer's own draws
+   (``weights/golden/p128_train_step.npz``, crop 64, B=4) against JAX's
+   loss (rel 1e-4) and gradients (max|d|/max|g| 1e-3), and three AdamW
+   steps under the cosine schedule (losses rel 1e-4, every parameter's
+   norm rel 1e-5); (b) both committed recipes at full width, ``unet_2``
+   on seeded 512x512 covers: LSBR (crop 512, B=4, f32 with TF32 off,
+   augment, alpha 0.4, weighted l1ws lambda 0.25, cosine), LSBR in bf16
+   and with HILLr, and dropout (crop 320, B=12, UniformDropout 0.1, l1, no
+   stego), 5 timed steps each: step ms by CUDA events, img/s by host
+   clock, peak memory, the busy share and top kernels of one profiled
+   step; (c) the card against the CPU on the same draws (the golden step,
+   and a dropout step at crop 48): loss rel 1e-4, gradients 1e-3; HILLr
+   on 4x512x512 bitwise equal on both; (d) ``train_names`` on ``.npy``
+   covers (the golden batches, 128x128) for 2 epochs of 2 steps, its run
+   loaded with ``load_pretrained_unet`` (the weights of ``model/best``)
+   and one batch served through ``predict_batch``.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -110,6 +129,7 @@ FAST_CONV = [False, "borderfix", True]
 REPO = pathlib.Path(__file__).resolve().parent
 GOLDEN = REPO / "weights" / "golden" / "p128_lsbr.npz"
 GOLDEN_B0 = REPO / "weights" / "golden" / "p128_b0.npz"
+GOLDEN_TRAIN = REPO / "weights" / "golden" / "p128_train_step.npz"
 # P(stego) of the trained B0 runs against JAX (tests/test_torch_b0.py):
 # f32 sums in another order move logits of up to 100 by about 3e-6
 # relative, a P(stego) near 0.5 by up to 3.6e-5 on the CPU
@@ -294,10 +314,13 @@ def graph_output(fn, x: torch.Tensor) -> torch.Tensor:
 
 
 def device_profile(fn, steps: int, top: int = 6) -> dict:
-    """Run ``fn`` ``steps`` times under torch.profiler: host wall time and
-    device busy time per step (sum of the card's kernel and copy events,
-    one stream) and the kernels that take most of it.  The profiler's own
-    cost inflates the wall time, so the busy share is a lower bound."""
+    """Run ``fn`` ``steps`` times under torch.profiler: host wall time,
+    device busy time per step (``busy_ms``: the sum of the card's kernel
+    and copy events; ``busy_union_ms``: the time at least one of them
+    runs, which is less where cuDNN runs kernels on several streams at
+    once) and the kernels that take most of the sum.  The busy share is
+    the union over the wall time; the profiler's own cost inflates the
+    wall time, so it is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,14 +333,24 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / steps
+            spans.append((e.time_range.start, e.time_range.end))
     busy = sum(by_name.values())
-    return {"wall_ms": wall_ms, "busy_ms": busy,
-            "busy_share": busy / wall_ms if by_name else None,
+    union_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            union_us += end - start
+            reach = end
+        elif end > reach:
+            union_us += end - reach
+            reach = end
+    union = union_us / 1e3 / steps
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_union_ms": union,
+            "busy_share": union / wall_ms if by_name else None,
             "layout_ms": {pat: sum(ms for n, ms in by_name.items()
                                    if pat in n) for pat in LAYOUT_KERNELS},
             "copy_ms": {pat: sum(ms for n, ms in by_name.items()
@@ -871,6 +904,303 @@ def b0_path(smi_line: str) -> dict:
     return {"table": table, "full_width": rows}
 
 
+def _grads_flax(model) -> dict:
+    """A model's gradients in the Flax params layout, f32 numpy."""
+    from wsunet_tpu_torch.models import flax_params_from_unet_state_dict
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree
+
+    return flatten_tree(flax_params_from_unet_state_dict(
+        {k: p.grad for k, p in model.named_parameters()}))
+
+
+def _rel_grad_err(got: dict, want: dict) -> float:
+    """The largest max|got - want| / max|want| over the tensors of
+    ``want``."""
+    return max(float(np.abs(got[k] - want[k]).max() /
+                     max(float(np.abs(want[k]).max()), 1e-30))
+               for k in want)
+
+
+def top_ops(fn, top: int = 3) -> list:
+    """The ``top`` PyTorch operators of one call of ``fn`` by the device
+    time of their own kernels, with their input shapes (torch.profiler,
+    grouped by input shape): [name, shapes, ms]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(a):
+        return getattr(a, "self_device_time_total", None) or getattr(
+            a, "self_cuda_time_total", 0.0)
+
+    rows = [a for a in prof.key_averages(group_by_input_shape=True)
+            if a.key.startswith("aten::")]
+    rows.sort(key=lambda a: -device_us(a))
+    return [[a.key, str(a.input_shapes)[:80], device_us(a) / 1e3]
+            for a in rows[:top]]
+
+
+_LSBR_RECIPE = dict(crop=512, batch_size=4, augment=True,
+                    stego_method="LSBR", alpha=0.4, loss="l1ws",
+                    loss_lambda=0.25, weighted_loss=True,
+                    lr_schedule="cosine", learning_rate=2e-5, drop_rate=None,
+                    compute_dtype="float32", num_epochs=50)
+# phase 11 (b): both committed recipes (weights/unet/LSBR/260819071329-*
+# and the dropout run's config), LSBR again in bf16 and with HILLr
+RECIPES = {
+    "LSBR f32": _LSBR_RECIPE,
+    "LSBR bf16": {**_LSBR_RECIPE, "compute_dtype": "bfloat16"},
+    "LSBR HILLr f32": {**_LSBR_RECIPE, "stego_method": "HILLR"},
+    "dropout f32": dict(crop=320, batch_size=12, augment=False,
+                        stego_method=None, alpha=None, loss="l1",
+                        loss_lambda=None, weighted_loss=False,
+                        lr_schedule=None, learning_rate=1e-4, drop_rate=0.1,
+                        compute_dtype="float32", num_epochs=50),
+}
+
+
+def time_recipe(label: str, r: dict, smi_line: str) -> dict:
+    """Train seeded ``unet_2`` in recipe ``r`` on 512x512 seeded covers on
+    the card: 2 warm-up steps, 5 timed (step ms by CUDA events, img/s by
+    host clock, peak memory), then one profiled step (busy share, top
+    kernels and operators).  Prints and returns the row."""
+    from wsunet_tpu_torch.models import get_model, init_unet
+    from wsunet_tpu_torch.train import get_loss
+    from wsunet_tpu_torch.train.train_unet import _make_step, make_optimizer
+
+    dev = torch.device("cuda")
+    B = r["batch_size"]
+    model = init_unet(get_model(
+        "unet_2", drop_rate=r["drop_rate"],
+        compute_dtype=getattr(torch, r["compute_dtype"])), 0).to(dev)
+    loss_fn = get_loss(r["loss"], per_image=True,
+                       loss_lambda=r["loss_lambda"]
+                       if r["weighted_loss"] else None)
+    opt, sch = make_optimizer(r, 100, model.parameters())
+    step = _make_step(model, loss_fn, opt, sch, r["stego_method"],
+                      r["alpha"], crop=r["crop"], augment=r["augment"])[0]
+    x = torch.from_numpy(smooth_covers(B, 512, seed=41)).to(dev)
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        step(x, mask, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = [float(step(x, mask, gen)) for _ in range(n)]
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{label}: a loss is not finite")
+    prof = device_profile(lambda: step(x, mask, gen), 1, top=6)
+    ops = top_ops(lambda: step(x, mask, gen))
+    row = {"recipe": label, "B": B, "crop": r["crop"],
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "step_ms": start.elapsed_time(end) / n,
+           "img_per_s": B * n / host_s,
+           "peak_mem_gib": peak_mem / 2 ** 30,
+           "busy_share": prof["busy_share"],
+           "top": prof["top"] if prof["busy_share"] is not None
+           else "not measured", "top_ops": ops, "loss": losses[-1]}
+    print(f"training (b), full width ({smi_line}): " + json.dumps(row))
+    del model, opt, sch, step, x
+    torch.cuda.empty_cache()
+    return row
+
+
+def training_path(smi_line: str) -> dict:
+    """Phase 11: the U-Net trainer on the card.  (a) the step held to the
+    JAX trainer's golden numbers (``weights/golden/p128_train_step.npz``:
+    JAX's draws, loss, gradients, and three AdamW steps under the cosine
+    schedule); (b) both committed recipes at full width (``unet_2``,
+    512x512 seeded covers): LSBR (B=4, f32, TF32 off, augment, alpha 0.4,
+    weighted l1ws, cosine), again in bf16 and with HILLr, and dropout
+    (crop 320, B=12, UniformDropout 0.1, l1, no stego): step ms by CUDA
+    events, img/s by host clock, peak memory, busy share and top kernels
+    of one profiled step; (c) the card against the CPU on the same draws
+    (loss and gradients), and HILLr bitwise at 512x512; (d) ``train_names``
+    on ``.npy`` covers for 2 epochs of 2 steps, its run loaded with
+    ``load_pretrained_unet`` and served through ``predict_batch``.  B1 and
+    B2 are off this path (JAX trains on XLA convs and the plain WS loss):
+    the phase checks that neither launches."""
+    from wsunet_tpu_torch.data.simulate import hillr_simulate
+    from wsunet_tpu_torch.models import (get_model, init_unet,
+                                         unet_state_dict_from_flax)
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.train import get_loss, load_checkpoint, load_params
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree
+    from wsunet_tpu_torch.train.train_unet import (Sampler, _make_step,
+                                                   make_optimizer,
+                                                   train_names)
+    from wsunet_tpu_torch.models import flax_params_from_unet_state_dict
+    from wsunet_tpu_torch.ws import load_pretrained_unet, predict_batch
+
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    out = {}
+
+    # (a) the golden step: JAX's draws on the committed LSBR weights
+    z = np.load(GOLDEN_TRAIN)
+    cfg = json.loads(str(z["config"]))
+    run_dir = REPO / "weights" / "unet" / "LSBR" / str(z["run"])
+    params = unet_state_dict_from_flax(load_params(run_dir)[0])
+    fn = get_loss(cfg["loss"], per_image=True,
+                  loss_lambda=cfg["loss_lambda"])
+
+    def golden_model(device):
+        m = get_model(cfg["network"])
+        m.load_state_dict(params)
+        return m.to(device)
+
+    def draws(s, device):
+        p = f"draws/{s}/"
+        d = {k[len(p):]: torch.from_numpy(z[k]) for k in z.files
+             if k.startswith(p)}
+        return {k: (v.long() if v.dtype == torch.int32 else v).to(device)
+                for k, v in d.items()}
+
+    def sampler(m):
+        return Sampler(m, fn, cfg["stego_method"], cfg["alpha"],
+                       crop=cfg["crop"], augment=cfg["augment"],
+                       cover_fraction=cfg["cover_fraction"])
+
+    def one_step(device):
+        m = golden_model(device).train()
+        loss = sampler(m).loss(torch.from_numpy(z["pixels"][0]).to(device),
+                               torch.from_numpy(z["mask"][0]).to(device),
+                               draws(0, device))[0]
+        loss.backward()
+        return float(loss), _grads_flax(m)
+
+    loss_card, g_card = one_step(dev)
+    full = {k[len("grad/"):]: z[k] for k in z.files if k.startswith("grad/")}
+    d_loss = abs(loss_card / float(z["loss"]) - 1)
+    d_grad = _rel_grad_err(g_card, full)
+    d_norm = max(abs(float(np.linalg.norm(g_card[k])) /
+                     float(z[f"grad_norm/{k}"]) - 1) for k in g_card)
+    check(d_loss <= 1e-4, f"golden step loss: rel {d_loss:.3e} > 1e-4")
+    check(d_grad <= 1e-3, f"golden step gradients: {d_grad:.3e} > 1e-3")
+    check(d_norm <= 1e-3, f"golden gradient norms: rel {d_norm:.3e}")
+    m = golden_model(dev)
+    opt, sch = make_optimizer(cfg, cfg["steps_per_epoch"], m.parameters())
+    train_step = _make_step(m, fn, opt, sch, cfg["stego_method"],
+                            cfg["alpha"], crop=cfg["crop"],
+                            augment=cfg["augment"],
+                            cover_fraction=cfg["cover_fraction"])[0]
+    losses = [float(train_step(torch.from_numpy(z["pixels"][s]).to(dev),
+                               torch.from_numpy(z["mask"][s]).to(dev),
+                               draws=draws(s, dev)))
+              for s in range(len(z["adamw_loss"]))]
+    d_adam = float(np.max(np.abs(np.array(losses) / z["adamw_loss"] - 1)))
+    pn = flatten_tree(flax_params_from_unet_state_dict(m.state_dict()))
+    d_pnorm = max(abs(float(np.linalg.norm(pn[k])) /
+                      float(z[f"param_norm/{k}"]) - 1) for k in pn)
+    check(d_adam <= 1e-4, f"golden AdamW losses: rel {d_adam:.3e}")
+    check(d_pnorm <= 1e-5, f"golden parameter norms: rel {d_pnorm:.3e}")
+    out["golden"] = {"loss_rel": d_loss, "grad_rel": d_grad,
+                     "grad_norm_rel": d_norm, "adamw_loss_rel": d_adam,
+                     "param_norm_rel": d_pnorm}
+    print(f"training (a), golden step against JAX ({smi_line}): loss "
+          f"{loss_card:.8f} (JAX {float(z['loss']):.8f}, rel {d_loss:.3e} "
+          f"<= 1e-4); gradients max|d|/max|g| {d_grad:.3e} (<= 1e-3), "
+          f"norms rel {d_norm:.3e}; 3 AdamW steps: losses rel {d_adam:.3e} "
+          f"(<= 1e-4), parameter norms rel {d_pnorm:.3e} (<= 1e-5)")
+
+    # (c) the card against the CPU on the same draws: the golden step, and
+    # the dropout recipe's step (crop 48, keep masks) on seeded unet_2
+    loss_cpu, g_cpu = one_step(cpu)
+    c_loss = abs(loss_card / loss_cpu - 1)
+    c_grad = _rel_grad_err(g_card, g_cpu)
+    drop = init_unet(get_model("unet_2", drop_rate=0.1), seed=3)
+    l1 = get_loss("l1", per_image=True)
+    covers = torch.from_numpy(smooth_covers(4, 128, seed=31))
+    mask = torch.ones(4, dtype=torch.bool)
+    res = []                                     # (loss, grads): CPU, card
+    d_cpu = Sampler(drop, l1, None, None, crop=48, augment=True).draw(
+        covers.shape, torch.Generator().manual_seed(0))
+    for device in (cpu, dev):
+        m = copy.deepcopy(drop).to(device).train()
+        loss = Sampler(m, l1, None, None, crop=48, augment=True).loss(
+            covers.to(device), mask.to(device),
+            {k: v.to(device) for k, v in d_cpu.items()})[0]
+        loss.backward()
+        res.append((float(loss), _grads_flax(m)))
+    cd_loss = abs(res[1][0] / res[0][0] - 1)
+    cd_grad = _rel_grad_err(res[1][1], res[0][1])
+    check(max(c_loss, cd_loss) <= 1e-4,
+          f"card vs CPU loss: rel {c_loss:.3e} / {cd_loss:.3e} > 1e-4")
+    check(max(c_grad, cd_grad) <= 1e-3,
+          f"card vs CPU gradients: {c_grad:.3e} / {cd_grad:.3e} > 1e-3")
+    hill = smooth_covers(4, 512, seed=33)
+    hill_equal = all(torch.equal(
+        hillr_simulate(torch.from_numpy(hill).to(dev), a).cpu(),
+        hillr_simulate(torch.from_numpy(hill), a)) for a in (0.4, 0.1))
+    check(hill_equal, "HILLr on the card differs from HILLr on the CPU")
+    out["card_vs_cpu"] = {"lsbr_loss_rel": c_loss, "lsbr_grad_rel": c_grad,
+                          "dropout_loss_rel": cd_loss,
+                          "dropout_grad_rel": cd_grad,
+                          "hillr_512_bitwise": hill_equal}
+    print(f"training (c), card against CPU ({smi_line}): LSBR golden step "
+          f"loss rel {c_loss:.3e}, gradients {c_grad:.3e}; dropout step "
+          f"(crop 48, keep masks) loss rel {cd_loss:.3e}, gradients "
+          f"{cd_grad:.3e} (<= 1e-4, 1e-3); HILLr 4x512x512 at alpha 0.4 "
+          f"and 0.1 bitwise equal")
+
+    # (b) both committed recipes at full width, one timed row each
+    out["full_width"] = [time_recipe(label, r, smi_line)
+                         for label, r in RECIPES.items()]
+    print("training step_ms: CUDA events over 5 steps after 2 warm-up "
+          "steps (draws, augmentation, embedding, forward, backward, AdamW "
+          "and schedule; the host reads each loss, as the trainer does); "
+          "img_per_s: host clock over the same 5 steps; peak_mem: "
+          "torch.cuda.max_memory_allocated over them; busy_share: device "
+          "kernel time over host wall time of one profiled step")
+
+    # (d) the loop closes: train_names on .npy covers, then serve the run
+    root = REPO / "build" / "smoke_train"
+    if root.exists():
+        shutil.rmtree(root)
+    (root / "images").mkdir(parents=True)
+    pixels = z["pixels"].reshape(-1, 128, 128)
+    names = []
+    for i, img in enumerate(pixels):
+        names.append(f"images/{i}.npy")
+        np.save(root / names[-1], img)
+    cfg_d = dict(network="unet_2", crop=64, batch_size=4, steps_per_epoch=2,
+                 num_epochs=2, val_steps=1, augment=True, alpha=0.4,
+                 weighted_loss=True, lr_schedule="cosine", seed=1)
+    exp = train_names(cfg_d, root, names[:8], names[8:], root / "runs",
+                      device="cuda", reader=np.load)
+    model, config = load_pretrained_unet(exp.parent, exp.name,
+                                         device="cuda")
+    best = load_checkpoint(exp, "best")["params"]
+    same = all(torch.equal(best[k].cpu(), v.cpu())
+               for k, v in model.state_dict().items())
+    check(same, "the served model is not the run's model/best")
+    beta, l1 = predict_batch(model, pixels[:4], device="cuda")
+    check(beta.shape == (4,) and bool(torch.isfinite(beta).all())
+          and bool(torch.isfinite(l1).all()), "served beta_hat not finite")
+    rows_csv = (exp / "log" / "scalars.csv").read_text().split()
+    check(len(rows_csv) == 8, f"scalars.csv has {len(rows_csv)} rows")
+    out["loop"] = {"run": exp.name, "beta_hat": beta.tolist()}
+    print(f"training (d), train_names -> load_pretrained_unet -> "
+          f"predict_batch: {exp.name}; beta_hat {beta.cpu().numpy()}")
+    check(fused_reflect_conv.launches == 0 and fused_ws.launches == 0,
+          "a TPU-kernel port launched on the training path")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1405,6 +1735,10 @@ def main() -> int:
     # ---- 10. the B0 detection path
     b0_path(smi.stdout.strip().splitlines()[0])
     t = phase(10, "B0 detection path", t)
+
+    # ---- 11. the U-Net training path
+    training_path(smi.stdout.strip().splitlines()[0])
+    t = phase(11, "U-Net training path", t)
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{

@@ -14,6 +14,7 @@ port reads with numpy and json alone:
                                                'batch_stats/')
     weights/golden/p128_lsbr.npz              (the card's golden files)
     weights/golden/p128_b0.npz
+    weights/golden/p128_train_step.npz
 
 The golden file holds the 64 covers of ``data_ablation/p128``, their LSBr
 stego at alpha 0.1 and 0.01 (drawn as ``python -m wsunet_tpu simulate``
@@ -27,6 +28,17 @@ in bf16 on the covers), the OLS taps fitted on the 64 covers and OLS
 beta_hat, and the ``produce_roc`` summary of the two B0 labels of ``roc
 --b0`` and of OLS; and a color4 OLS case on seeded synthetic RGB covers
 and their stego (the pixels, the taps and beta_hat).
+
+``p128_train_step.npz`` holds three steps of the JAX U-Net trainer
+(``train/train_unet._make_step``) on covers of ``data_ablation/p128``, in
+the committed LSBR recipe (crop, flips and rot90, alpha 0.4, weighted
+``l1ws`` with lambda 0.25, lr 2e-5 under the cosine schedule) at crop 64,
+batch 4, from the committed LSBR run: the batches and masks, every
+draw of each step replayed from the trainer's key splits, the loss and the
+gradients of the first step (in full for ``e1_conv1``, ``up1`` and
+``outconv``, as a norm for every tensor), read by handing ``_make_step`` an
+optimizer that returns the gradients as its state, and the loss of each of
+three AdamW steps and every parameter's norm after them.
 
     python scripts/export_torch_weights.py                 # the defaults
     python scripts/export_torch_weights.py --run models/unet/HILLR/<run>
@@ -242,6 +254,162 @@ def golden(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
     return out
 
 
+# the training golden file: the committed LSBR recipe (the resumed
+# fine-tune of weights/unet/LSBR) at crop 64 on the 128x128 p128 covers;
+# seed 6's first step draws both covers and stegos, and its mask drops the
+# last row, so both branches and the masked mean are held
+TRAIN_CONFIG = dict(
+    network="unet_2", crop=64, augment=True, cover_fraction=0.5,
+    stego_method="LSBR", alpha=0.4, loss="l1ws", loss_lambda=0.25,
+    weighted_loss=True, learning_rate=2e-5, lr_schedule="cosine",
+    batch_size=4, steps_per_epoch=3, num_epochs=10, seed=6)
+TRAIN_STEPS = 3
+TRAIN_FULL_GRADS = ("e1_conv1_kernel", "e1_conv1_bias", "up1/kernel",
+                    "up1/bias", "outconv/kernel", "outconv/bias")
+
+
+def jax_step_draws(jax, key, shape, cfg: dict, drop_rate=None) -> dict:
+    """The draws the JAX trainer's step makes from ``key`` (the splits of
+    ``_make_step``'s ``compute_loss``, and with ``drop_rate`` the input
+    dropout's keep mask from the step's dropout key ``key[1]``), under the
+    names of the port's ``train.train_unet.Sampler.draw``, as numpy."""
+    B, H, W = shape
+    key, dropout_key = key
+    k_crop, k_aug, k_cover, k_embed = jax.random.split(key, 4)
+    d, crop = {}, cfg.get("crop")
+    h = w = None
+    if crop is not None and crop < H:
+        ki, kj = jax.random.split(k_crop)
+        d["oi"] = jax.random.randint(ki, (B,), 0, H - crop + 1)
+        d["oj"] = jax.random.randint(kj, (B,), 0, W - crop + 1)
+        h = w = crop
+    h, w = h or H, w or W
+    if cfg.get("augment"):
+        kf, kr = jax.random.split(k_aug)
+        kh, kv = jax.random.split(kf)
+        d["flip_h"] = jax.random.bernoulli(kh, shape=(B, 1, 1, 1)).reshape(B)
+        d["flip_v"] = jax.random.bernoulli(kv, shape=(B, 1, 1, 1)).reshape(B)
+        d["k"] = jax.random.randint(kr, (B,), 0, 4)
+    d["is_stego"] = jax.random.bernoulli(
+        k_cover, 1.0 - cfg.get("cover_fraction", 0.5), (B,))
+    if (cfg.get("stego_method") or "").upper().startswith("LSB") and \
+            cfg.get("alpha"):
+        k1, k2 = jax.random.split(k_embed)
+        d["embed"] = jax.random.uniform(k1, (B, h, w)) < cfg["alpha"]
+        d["bits"] = jax.random.bernoulli(k2, 0.5, (B, h, w))
+    if drop_rate:
+        d["keep"] = jax_dropout_keep(jax, dropout_key, (B, h, w), drop_rate)
+    return {k: np.asarray(v) for k, v in d.items()}
+
+
+def jax_dropout_keep(jax, dropout_key, shape, rate: float) -> np.ndarray:
+    """The keep mask [B, 1, h, w] that the Flax U-Net's ``input_dropout``
+    draws from the dropout key of ``apply``: a probe module with a child
+    of that name makes the same ``make_rng("dropout")`` call."""
+    from flax import linen as nn
+
+    B, h, w = shape
+
+    class Child(nn.Module):
+        @nn.compact
+        def __call__(self):
+            return jax.random.bernoulli(self.make_rng("dropout"),
+                                        p=1.0 - rate, shape=(B, h, w, 1))
+
+    class Probe(nn.Module):
+        @nn.compact
+        def __call__(self):
+            return Child(name="input_dropout")()
+
+    keep = Probe().apply({}, rngs={"dropout": dropout_key})
+    return np.asarray(keep).transpose(0, 3, 1, 2)
+
+
+def grad_capture():
+    """An optax transformation that leaves the parameters as they are and
+    keeps the gradients as its state: ``_make_step``'s ``train_step`` then
+    returns the exact gradients as ``opt_state``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    def init(params):
+        return jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        return jax.tree.map(jnp.zeros_like, grads), grads
+
+    return optax.GradientTransformation(init, update)
+
+
+def golden_train(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
+    """The training golden file, computed with the JAX trainer's own
+    ``_make_step`` and ``make_optimizer`` on the CPU."""
+    jax = _cpu_jax()
+    import json
+
+    import jax.numpy as jnp
+
+    from wsunet_tpu.data import load_images, precovers
+    from wsunet_tpu.models import get_model
+    from wsunet_tpu.train.losses import get_loss
+    from wsunet_tpu.train.train_unet import _make_step, make_optimizer
+    from wsunet_tpu.ws.unet_eval import load_pretrained_unet
+
+    cfg = TRAIN_CONFIG
+    B = cfg["batch_size"]
+    names = list(precovers(P128)["name"])[:TRAIN_STEPS * B]
+    pixels = load_images(P128, names).reshape(TRAIN_STEPS, B, 128, 128)
+    mask = np.ones((TRAIN_STEPS, B), bool)
+    mask[0, -1] = False
+    params = load_pretrained_unet(run_dir.parent, run_dir.name)[1]["params"]
+    model = get_model(cfg["network"])
+    loss_fn = get_loss(cfg["loss"], per_image=True,
+                       loss_lambda=cfg["loss_lambda"])
+
+    def steps(optimizer):
+        return _make_step(model, loss_fn, optimizer, cfg["stego_method"],
+                          cfg["alpha"], crop=cfg["crop"],
+                          augment=cfg["augment"],
+                          cover_fraction=cfg["cover_fraction"])[0]
+
+    key = jax.random.PRNGKey(cfg["seed"])
+    keys = []
+    for _ in range(TRAIN_STEPS):
+        key, ek, dk = jax.random.split(key, 3)
+        keys.append((ek, dk))
+    arrays = {"config": np.array(json.dumps(cfg)),
+              "run": np.array(run_dir.name), "pixels": pixels, "mask": mask}
+    for s, k in enumerate(keys):
+        for name, v in jax_step_draws(jax, k, pixels[s].shape, cfg).items():
+            arrays[f"draws/{s}/{name}"] = v
+
+    _, grads, loss = steps(grad_capture())(
+        params, grad_capture().init(params), jnp.asarray(pixels[0]),
+        jnp.asarray(mask[0]), *keys[0])
+    grads = flatten_tree(jax.tree.map(np.asarray, grads))
+    arrays["loss"] = np.float32(loss)
+    arrays.update({f"grad/{k}": grads[k] for k in TRAIN_FULL_GRADS})
+    arrays.update({f"grad_norm/{k}": np.float32(np.linalg.norm(v))
+                   for k, v in grads.items()})
+
+    optimizer = make_optimizer(cfg, cfg["steps_per_epoch"])
+    step = steps(optimizer)
+    opt_state, losses = optimizer.init(params), []
+    for s, k in enumerate(keys):
+        params, opt_state, loss = step(params, opt_state,
+                                       jnp.asarray(pixels[s]),
+                                       jnp.asarray(mask[s]), *k)
+        losses.append(float(loss))
+    arrays["adamw_loss"] = np.array(losses, np.float32)
+    arrays.update({f"param_norm/{k}": np.float32(np.linalg.norm(v))
+                   for k, v in flatten_tree(
+                       jax.tree.map(np.asarray, params)).items()})
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **arrays)
+    return out
+
+
 def golden_b0(b0_runs, out: pathlib.Path) -> pathlib.Path:
     """The B0 and OLS golden file, on the images of ``p128_lsbr.npz``,
     computed with the JAX package on the CPU."""
@@ -351,7 +519,9 @@ def main(argv=None) -> int:
         for out in (golden(REPO / DEFAULT_RUNS[0],
                            args.out / "golden" / "p128_lsbr.npz"),
                     golden_b0([REPO / r for r in DEFAULT_B0_RUNS],
-                              args.out / "golden" / "p128_b0.npz")):
+                              args.out / "golden" / "p128_b0.npz"),
+                    golden_train(REPO / DEFAULT_RUNS[0], args.out / "golden"
+                                 / "p128_train_step.npz")):
             print(f"wrote {out}")
     return 0
 

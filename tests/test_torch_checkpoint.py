@@ -121,6 +121,19 @@ def test_committed_golden_equals_a_fresh_one(fresh):
         assert str(a["run"]) == RUNS["LSBR"]
 
 
+def test_committed_train_golden_equals_a_fresh_one(fresh):
+    committed = REPO / "weights" / "golden" / "p128_train_step.npz"
+    with np.load(committed) as a, \
+            np.load(fresh / "golden" / "p128_train_step.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a["pixels"].shape == (3, 4, 128, 128)
+        assert str(a["run"]) == RUNS["LSBR"]
+        assert a["draws/0/is_stego"][:3].any()
+        assert not a["draws/0/is_stego"][:3].all()
+
+
 B0_RUNS = [
     "260817154325-tpu-b0-alpha_mix0.1-0.05-0.01_grayscale_crossentropy_lr_"
     "2e-05_dr_0.2",

@@ -401,3 +401,91 @@ def test_ols_on_card_matches_golden(cuda):
         for x in x4])
     np.testing.assert_allclose(beta.cpu().numpy(), gold["color/beta"],
                                rtol=0, atol=1e-3)
+
+
+GOLDEN_TRAIN = REPO / "weights" / "golden" / "p128_train_step.npz"
+
+
+def _golden_train_step(device):
+    """(loss, gradients in the Flax layout) of the golden training step:
+    the committed LSBR weights, JAX's draws, batch 0."""
+    import json
+
+    from wsunet_tpu_torch.models import (flax_params_from_unet_state_dict,
+                                         unet_state_dict_from_flax)
+    from wsunet_tpu_torch.train import get_loss, load_params
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree
+    from wsunet_tpu_torch.train.train_unet import Sampler
+
+    z = np.load(GOLDEN_TRAIN)
+    cfg = json.loads(str(z["config"]))
+    run = REPO / "weights" / "unet" / "LSBR" / str(z["run"])
+    m = get_model(cfg["network"])
+    m.load_state_dict(unet_state_dict_from_flax(load_params(run)[0]))
+    m = m.to(device).train()
+    fn = get_loss(cfg["loss"], per_image=True,
+                  loss_lambda=cfg["loss_lambda"])
+    draws = {k[len("draws/0/"):]: torch.from_numpy(z[k]) for k in z.files
+             if k.startswith("draws/0/")}
+    draws = {k: (v.long() if v.dtype == torch.int32 else v).to(device)
+             for k, v in draws.items()}
+    loss = Sampler(m, fn, cfg["stego_method"], cfg["alpha"],
+                   crop=cfg["crop"], augment=cfg["augment"],
+                   cover_fraction=cfg["cover_fraction"]).loss(
+        torch.from_numpy(z["pixels"][0]).to(device),
+        torch.from_numpy(z["mask"][0]).to(device), draws)[0]
+    loss.backward()
+    grads = flatten_tree(flax_params_from_unet_state_dict(
+        {k: p.grad for k, p in m.named_parameters()}))
+    return float(loss), grads, z
+
+
+@pytest.mark.cuda
+def test_golden_train_step_on_card(cuda):
+    """The training step on the card against JAX's golden numbers (loss
+    rel 1e-4, gradients max|d|/max|g| 1e-3) and against the CPU port
+    (the same bounds)."""
+    loss, grads, z = _golden_train_step(cuda)
+    assert abs(loss / float(z["loss"]) - 1) <= 1e-4
+    for k in z.files:
+        if k.startswith("grad/"):
+            want = z[k]
+            got = grads[k[len("grad/"):]]
+            assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max(), k
+    cpu_loss, cpu_grads, _ = _golden_train_step("cpu")
+    assert abs(loss / cpu_loss - 1) <= 1e-4
+    for k, want in cpu_grads.items():
+        assert np.abs(grads[k] - want).max() <= 1e-3 * np.abs(want).max(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.4, 0.01])
+def test_hillr_on_card_is_the_cpus(cuda, alpha):
+    from wsunet_tpu_torch.data.simulate import hillr_simulate
+
+    x = torch.from_numpy(np.load(GOLDEN)["pixels"][0, :16])
+    got = hillr_simulate(x.to(cuda), alpha).cpu()
+    assert torch.equal(got, hillr_simulate(x, alpha))
+
+
+@pytest.mark.cuda
+def test_train_names_on_card_writes_a_servable_run(cuda, tmp_path):
+    """Two epochs of two steps on the card from .npy covers; the run's
+    best.npz serves a batch."""
+    from wsunet_tpu_torch.train.train_unet import train_names
+
+    px = np.load(GOLDEN)["pixels"][0, :12]
+    (tmp_path / "images").mkdir()
+    names = []
+    for i, img in enumerate(px):
+        names.append(f"images/{i}.npy")
+        np.save(tmp_path / names[-1], img)
+    cfg = dict(network="unet_1", crop=64, batch_size=4, steps_per_epoch=2,
+               num_epochs=2, val_steps=1, augment=True,
+               lr_schedule="cosine", drop_rate=0.1)
+    exp = train_names(cfg, tmp_path, names[:8], names[8:], tmp_path / "runs",
+                      device="cuda", reader=np.load)
+    assert exp.name.split("-")[1] == "cuda"
+    model, _ = load_pretrained_unet(exp.parent, exp.name, device="cuda")
+    beta, l1 = predict_batch(model, px[:4], device="cuda")
+    assert bool(torch.isfinite(beta).all()) and bool(torch.isfinite(l1).all())

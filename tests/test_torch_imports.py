@@ -86,3 +86,16 @@ def _imported_names(path: pathlib.Path):
 def test_no_import_of_jax_or_sklearn_anywhere(path):
     bad = [n for n in _imported_names(path) if n.split(".")[0] in NEVER]
     assert bad == []
+
+
+def test_the_training_modules_are_covered():
+    """The trainer's modules are among those imported and read above."""
+    for mod in ("wsunet_tpu_torch.train.train_unet",
+                "wsunet_tpu_torch.train.losses",
+                "wsunet_tpu_torch.train.config",
+                "wsunet_tpu_torch.train.checkpoint",
+                "wsunet_tpu_torch.data.simulate",
+                "wsunet_tpu_torch.utils.seeding",
+                "wsunet_tpu_torch.utils.run_names",
+                "wsunet_tpu_torch.utils.logging"):
+        assert mod in MODULES

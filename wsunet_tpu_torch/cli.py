@@ -5,23 +5,30 @@
     python -m wsunet_tpu_torch detector-eval  B0 detector scores
     python -m wsunet_tpu_torch roc            ROC/AUC/P_E over WS and B0
                                               detectors
+    python -m wsunet_tpu_torch train-unet     train the U-Net predictor
+    python -m wsunet_tpu_torch simulate       generate stego fixtures
 
 The flags and defaults are the JAX CLI's, and the commands write the same
 files (``estimation/ws_sweep_<train>.csv``, ``estimation/ws_<method>.csv``,
-``detection/b0.csv``, ``detection/{auc,roc}_<alpha>.csv`` and
-``roc_<alpha>.png``), with these differences: the model directories
-default to the exported runs (``--model-dir`` / ``--unet-model-dir``
+``detection/b0.csv``, ``detection/{auc,roc}_<alpha>.csv``,
+``roc_<alpha>.png``, a training run's directory, and
+``stego_<method>_alpha_<alpha>_independent_images/`` with its
+``files.csv``), with these differences: the model directories default to
+the exported runs (``--model-dir`` / ``--unet-model-dir``
 ``weights/unet``, ``detector-eval --model-dir`` / ``--b0-model-dir``
 ``weights/b0``; ``scripts/export_torch_weights.py``), ``--device`` picks
 the device (default CUDA), and ``--fast-conv`` runs the U-Net's 3x3 convs
 through kernel B1 instead of cuDNN.  ``ws-eval --models OLS`` fits the OLS
 predictor on the covers, in the colour layouts for two or three
-``--channels``.  pandas and matplotlib are imported by the commands; the
-other subcommands of the JAX CLI (``filters-eval``, training, analyses,
-``simulate``, ...) do not exist yet.
+``--channels``.  ``simulate --method LSBr`` draws from torch generators
+seeded per image as the JAX CLI seeds its keys, so its stego pixels are
+not the JAX CLI's (HILLr's are).  pandas, PIL and matplotlib are imported
+by the commands; the other subcommands of the JAX CLI (``filters-eval``,
+``train-b0``, the analyses, ...) do not exist yet.
 """
 
 import argparse
+import json
 import pathlib
 import sys
 
@@ -99,6 +106,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--b0-train-alpha", type=float, default=None,
                    help="registry filter on the B0 training alpha (labels "
                         "always come from the model's own config)")
+
+    p = sub.add_parser("train-unet", help="train the U-Net predictor")
+    _common(p)
+    p.add_argument("--output-dir", type=pathlib.Path,
+                   default=pathlib.Path("models/unet"))
+    p.add_argument("--config", type=json.loads, default={},
+                   help='JSON config overrides, e.g. \'{"alpha":0.4}\'')
+
+    p = sub.add_parser("simulate", help="generate stego fixture directories")
+    _common(p)
+    p.add_argument("--method", choices=["LSBr", "HILLr"], default="LSBr")
+    p.add_argument("--alphas", nargs="+", type=float,
+                   default=[.01, .05, .1, .2, .4, 1.0])
     return ap
 
 
@@ -121,6 +141,10 @@ def main(argv=None):
 
 def _dispatch(args):
     cmd = args.command
+    # commands that do not walk the catalog refuse a row selection instead
+    # of ignoring it
+    if (args.split or args.take) and cmd in ("train-unet", "simulate"):
+        raise SystemExit(f"{cmd} does not support --split/--take")
     if cmd == "ws-eval":
         res = _ws_sweep(args)
         out = args.results / "estimation" / f"ws_sweep_{args.train_method}.csv"
@@ -150,6 +174,13 @@ def _dispatch(args):
         print(f"output saved to {out}")
     elif cmd == "roc":
         _cmd_roc(args)
+    elif cmd == "train-unet":
+        from .train.train_unet import train
+        exp = train(args.config, data_path=args.data,
+                    output_dir=args.output_dir, device=args.device)
+        print(f"experiment saved to {exp}")
+    elif cmd == "simulate":
+        _cmd_simulate(args)
     return 0
 
 
@@ -334,6 +365,41 @@ def _cmd_roc(args):
     plt.close(fig)
     print(df_auc.to_string())
     print(f"outputs saved to {outdir}")
+
+
+def _cmd_simulate(args):
+    """Stego copies of every cover at each alpha, one PNG each and a
+    ``files.csv``, in the JAX CLI's layout; each image is embedded on
+    ``--device`` with its own generator (``data.simulate.image_key``)."""
+    import pandas as pd
+    from PIL import Image
+
+    import torch
+
+    from ._device import resolve_device
+    from .data import load_images, precovers
+    from .data.simulate import image_key, simulate
+
+    dev = resolve_device(args.device)
+    df = precovers(args.data)
+    pixels = load_images(args.data, list(df["name"]))
+    method = args.method.upper().rstrip("R") + "R"
+    for alpha in args.alphas:
+        outdir = (args.data /
+                  f"stego_{args.method}_alpha_{alpha}_independent_images")
+        outdir.mkdir(parents=True, exist_ok=True)
+        rows = []
+        for i, name in enumerate(df["name"]):
+            x = torch.from_numpy(pixels[i][None]).to(dev)
+            stego = simulate(x, args.method, alpha,
+                             image_key(name, device=dev))[0].cpu().numpy()
+            base = pathlib.Path(name).name
+            Image.fromarray(stego).save(outdir / base)
+            rows.append({"name": f"{outdir.name}/{base}",
+                         "height": stego.shape[0], "width": stego.shape[1],
+                         "stego_method": method, "alpha": alpha})
+        pd.DataFrame(rows).to_csv(outdir / "files.csv", index=False)
+        print(f"wrote {len(rows)} stego images to {outdir}")
 
 
 if __name__ == "__main__":

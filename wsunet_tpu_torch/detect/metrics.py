@@ -1,5 +1,10 @@
-"""The detection meters ``produce_roc`` uses (port of part of
-``wsunet_tpu/detect/metrics.py``), in numpy alone.
+"""The detection meters ``produce_roc`` uses and the streaming meters of
+the trainer (port of part of ``wsunet_tpu/detect/metrics.py``), in numpy
+alone.
+
+The trainer's meters (``AverageMeter``, ``LossMeter``, ``MAEMeter``,
+``WSMeter``, ``ProgressMeter``) take numpy arrays or host numbers;
+``WSMeter`` takes the port's NCHW batches and crops 1 px of H and W.
 
 The JAX package computes them with scikit-learn, which the card's machine
 does not have.  ``roc_curve`` and ``auc`` here return what
@@ -12,9 +17,110 @@ those points and ``PMD5FPMeter`` steps back from one, so an extra or a
 missing point moves them.
 """
 
+from enum import Enum
+
 import numpy as np
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+class Summary(Enum):
+    NONE = 0
+    AVERAGE = 1
+    SUM = 2
+    COUNT = 3
+
+
+class AverageMeter:
+    """Streaming average."""
+
+    name = None
+
+    def __init__(self, fmt=":.5f", summary_type=Summary.AVERAGE):
+        self.fmt = fmt
+        self.summary_type = summary_type
+        self.reset()
+
+    def reset(self):
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+    def update_vector(self, vals):
+        vals = np.asarray(vals)
+        self.sum += np.nansum(vals)
+        self.count += vals.shape[0]
+        self.avg = self.sum / self.count
+
+    def __str__(self):
+        if self.summary_type is Summary.NONE:
+            return ""
+        field = {Summary.AVERAGE: "avg", Summary.SUM: "sum",
+                 Summary.COUNT: "count"}[self.summary_type]
+        return f"{self.name} {getattr(self, field):.3f}"
+
+
+class LossMeter(AverageMeter):
+    name = "loss"
+
+
+class MAEMeter(AverageMeter):
+    """Masked mean absolute error, times ``multiplier``."""
+
+    name = "mae"
+
+    def __init__(self, *args, multiplier: int = 1, masked: bool = None, **kw):
+        super().__init__(*args, **kw)
+        self.multiplier = multiplier
+        self.masked = masked
+
+    def update(self, y_true, y_pred, mask=None):
+        if self.masked is True:
+            y_true, y_pred = y_true[mask], y_pred[mask]
+        elif self.masked is False:
+            y_true, y_pred = y_true[~mask], y_pred[~mask]
+        resid = (np.asarray(y_true) - np.asarray(y_pred)) * self.multiplier
+        super().update(np.nanmean(np.abs(resid)))
+
+
+class WSMeter(AverageMeter):
+    """beta_hat MAE on [B, C, H, W] batches in [0, 1]: a 1-px crop of H
+    and W, round then XOR 1, uniform weights, clipped at 0 (the JAX meter
+    crops axes 1 and 2 of its NHWC batches, the same pixels)."""
+
+    name = "ws"
+
+    def update(self, x, x_hat, alphas):
+        x = np.asarray(x)[..., 1:-1, 1:-1] * 255.0
+        x_hat = np.asarray(x_hat)[..., 1:-1, 1:-1] * 255.0
+        x_bar = np.round(x).astype("int") ^ 1
+        weights = np.ones_like(x) / np.prod(x.shape[1:])
+        axes = tuple(range(1, x.ndim))
+        betas_hat = np.sum(weights * (x - x_bar) * (x - x_hat), axis=axes)
+        betas_hat = np.clip(betas_hat, 0, None)
+        betas = np.asarray(alphas) / 2.0
+        super().update(np.mean(np.abs(betas_hat - betas)))
+
+
+class ProgressMeter:
+    """Batch-progress line formatter."""
+
+    def __init__(self, num_batches, meters, prefix=""):
+        num_digits = len(str(num_batches // 1))
+        fmt = "{:" + str(num_digits) + "d}"
+        self.batch_fmtstr = "[" + fmt + "/" + fmt.format(num_batches) + "]"
+        self.meters = meters
+        self.prefix = prefix
+
+    def to_str(self, batch):
+        entries = [self.prefix + self.batch_fmtstr.format(batch)]
+        entries += [str(m) for m in self.meters]
+        return "\t".join(entries)
 
 
 def roc_curve(y_true, y_score, pos_label=1, drop_intermediate: bool = True):

@@ -1,5 +1,5 @@
 """Flax parameters -> state dicts of the torch ``UNet`` and
-``EfficientNetB0``.
+``EfficientNetB0``, and a trained ``UNet`` back to Flax parameters.
 
 Takes numpy only (a nested dict of arrays, as ``jax.tree.map(np.asarray,
 params)`` gives it), so it runs where JAX is not installed.
@@ -14,6 +14,13 @@ U-Net (``unet_state_dict_from_flax``):
   the gradient of a convolution, so output pixel (2i+a, 2j+b) takes Flax
   tap (1-a, 1-b).  ``tests/test_torch_unet.py`` fixes this against JAX on
   random weights.
+
+``flax_params_from_unet_state_dict`` is the inverse of
+``unet_state_dict_from_flax``: OIHW back to HWIO and the transposed convs'
+taps flipped back, so a run the port trained is written in the layout of
+``best.npz`` (``train.checkpoint``) that ``load_params`` and
+``ws.unet_eval.load_pretrained_unet`` read, and the JAX package's Flax
+model takes.
 
 B0 (``b0_state_dict_from_flax``): see its docstring.
 """
@@ -52,6 +59,38 @@ def unet_state_dict_from_flax(params: dict) -> dict:
                 sd[f"{name}.{conv}.weight"] = _oihw(p["kernel"])
                 sd[f"{name}.{conv}.bias"] = _vec(p["bias"])
     return sd
+
+
+def _hwio(weight) -> np.ndarray:
+    return np.ascontiguousarray(_np(weight).transpose(2, 3, 1, 0))
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def flax_params_from_unet_state_dict(state_dict: dict) -> dict:
+    """Map a ``models.unet.UNet`` ``state_dict`` to the Flax ``UNet``
+    params tree (nested dicts of f32 numpy arrays), the inverse of
+    ``unet_state_dict_from_flax``."""
+    params = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        if path == ["e1_conv1"]:
+            params[f"e1_conv1_{'kernel' if leaf == 'weight' else 'bias'}"] = \
+                _hwio(value) if leaf == "weight" else _np(value)
+            continue
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf == "bias":
+            node["bias"] = _np(value)
+        elif path[0].startswith("up"):
+            node["kernel"] = np.ascontiguousarray(
+                _np(value).transpose(2, 3, 0, 1)[::-1, ::-1])
+        else:
+            node["kernel"] = _hwio(value)
+    return params
 
 
 def b0_state_dict_from_flax(params: dict, batch_stats: dict = None) -> dict:

@@ -25,12 +25,23 @@ convolutions run in; on CUDA the f32 path runs with TF32 off.
 Both fast routes take NHWC, so their activations are ``channels_last``:
 the NHWC view ``h.permute(0, 2, 3, 1)`` of a channels-last tensor is
 contiguous, and max pooling, the transposed convs and the skip concat
-keep that layout.  ``UniformDropout`` is a training-time module (the
-identity at eval) and waits for the training slice.
+keep that layout.
+
+``drop_rate`` adds ``UniformDropout`` on the input, after the cast to
+``compute_dtype``: in training mode, dropped pixels are replaced by their
+KB prediction (``kb_predict``), one mask shared across channels; in eval
+mode it is the identity.  ``uniform_dropout`` is its pure core, given the
+keep mask; in training mode the caller passes the mask (the trainer draws
+it with the rest of a step's draws, ``train.train_unet.Sampler.draw``).
+
+``init_unet`` fills a model as Flax's default initialisers do: every
+kernel LeCun-normal (a normal cut at +-2 sigma, rescaled so that its
+standard deviation is 1/sqrt(fan_in)), every bias zero.
 """
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,6 +52,49 @@ from ..ops.reflect_conv import conv3x3_reflect_borderfix
 
 WIDTHS = [64, 128, 256, 512, 1024]
 FAST_CONV = (False, "borderfix", True)
+_KB = np.array(
+    [[-1, 2, -1],
+     [2, 0, 2],
+     [-1, 2, -1]], dtype="float32") / 4.0
+# the standard deviation of a standard normal cut at +-2, as Flax's
+# truncated-normal initialisers divide by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def kb_predict(x: torch.Tensor) -> torch.Tensor:
+    """KB-filter prediction of every pixel from its 8 neighbours, with
+    reflect padding, per channel: [B, C, H, W] -> [B, C, H, W], in x's
+    dtype."""
+    c = x.shape[1]
+    k = torch.as_tensor(_KB, dtype=x.dtype, device=x.device)
+    return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"),
+                    k.expand(c, 1, 3, 3), groups=c)
+
+
+def uniform_dropout(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Keep the pixels where ``keep`` [B, 1, H, W] is 1 (or True) and
+    replace the others, in every channel, by their KB prediction."""
+    keep = keep.to(x.dtype)
+    return x * keep + kb_predict(x) * (1.0 - keep)
+
+
+class UniformDropout(nn.Module):
+    """Replace a ``rate`` share of the pixels by their KB prediction, in
+    training mode only (the reference's UniformDropout).  There the keep
+    mask [B, 1, H, W] is required: the trainer's Sampler draws it."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if keep is None:
+            raise ValueError("UniformDropout in training mode needs its "
+                             "keep mask")
+        return uniform_dropout(x, keep)
 
 
 class _Conv3x3Reflect(nn.Conv2d):
@@ -81,7 +135,8 @@ class UNet(nn.Module):
     [B, C_in, H, W] -> [B, C_out, H, W] in the input's dtype."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
-                 nsteps: int = 2, disable_center: bool = False,
+                 nsteps: int = 2, drop_rate: float = None,
+                 disable_center: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
                  fast_conv=False):
         super().__init__()
@@ -93,6 +148,8 @@ class UNet(nn.Module):
         self.nsteps = nsteps
         self.compute_dtype = compute_dtype
         self.fast_conv = fast_conv
+        self.input_dropout = (None if drop_rate is None
+                              else UniformDropout(drop_rate))
         self.e1_conv1 = _Conv3x3Reflect(in_channels, WIDTHS[0])
         self.e1_conv2 = _Conv3x3Reflect(WIDTHS[0], WIDTHS[0])
         for step in range(1, nsteps + 1):
@@ -109,11 +166,16 @@ class UNet(nn.Module):
             mask[0, 0, 1, 1] = 0.0
         self.register_buffer("center_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor = None) -> torch.Tensor:
+        """``keep``: the input dropout's mask [B, 1, H, W], required in
+        training mode when ``drop_rate`` is set."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype)
         if x.is_cuda and x.dtype == torch.float32:
             disable_tf32()
+        if self.input_dropout is not None:
+            x = self.input_dropout(x, keep=keep)
         fast = self.fast_conv
         h = self.e1_conv1(x, weight=self.e1_conv1.weight * self.center_mask,
                           fast=fast)
@@ -136,9 +198,13 @@ class UNet(nn.Module):
 
 @torch.no_grad()
 def init_unet(model: UNet, seed: int) -> UNet:
-    """Fill every kernel from a seeded generator, LeCun-normal like Flax's
-    default initializer (std = 1/sqrt(fan_in)), and zero the biases, so a
-    model at full width can run without a checkpoint."""
+    """Fill every kernel from a seeded CPU generator as Flax's
+    ``lecun_normal`` does (``variance_scaling(1, "fan_in",
+    "truncated_normal")``: a standard normal cut at +-2, times
+    1/sqrt(fan_in) / 0.8796..., so the standard deviation is
+    1/sqrt(fan_in) and the support +-2.27/sqrt(fan_in)), and zero the
+    biases.  The draws are torch's, not ``jax.random``'s: the distribution
+    is JAX's, the values are not."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         if name.endswith("bias"):
@@ -149,12 +215,14 @@ def init_unet(model: UNet, seed: int) -> UNet:
             fan_in = p.shape[0] * p.shape[2] * p.shape[3]
         else:
             fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-        p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
+        t = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0, -2.0, 2.0,
+                                  generator=gen)
+        p.copy_(t * (1.0 / math.sqrt(fan_in) / _TRUNC_STD))
     return model
 
 
 def get_model(name: str, in_channels: int = 1, out_channels: int = 1,
-              disable_center: bool = False,
+              drop_rate: float = None, disable_center: bool = False,
               compute_dtype: torch.dtype = torch.float32,
               fast_conv=False) -> UNet:
     """Model factory; names are ``unet_<nsteps>``; ``fast_conv`` in
@@ -162,6 +230,6 @@ def get_model(name: str, in_channels: int = 1, out_channels: int = 1,
     if not name.lower().startswith("unet"):
         raise NotImplementedError(name)
     return UNet(in_channels=in_channels, out_channels=out_channels,
-                nsteps=int(name.split("_")[1]),
+                nsteps=int(name.split("_")[1]), drop_rate=drop_rate,
                 disable_center=disable_center, compute_dtype=compute_dtype,
                 fast_conv=fast_conv)

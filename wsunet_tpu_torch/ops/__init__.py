@@ -5,8 +5,8 @@ from .fused_reflect_conv import (conv3x3_reflect_fused,
 from .fused_ws import ws_attack_fused, ws_attack_fused_plain
 from .reflect_conv import conv3x3_reflect_borderfix
 from .hill import hill_cost
-from .ws import (lsb_flip_u8, ws_attack, ws_attack_sca, ws_estimate_unet,
-                 ws_weights)
+from .ws import (lsb_flip_u8, ws_attack, ws_attack_sca, ws_estimate_inloss,
+                 ws_estimate_unet, ws_weights)
 
 __all__ = [
     "NAMED_FILTERS",
@@ -23,6 +23,7 @@ __all__ = [
     "lsb_flip_u8",
     "ws_attack",
     "ws_attack_sca",
+    "ws_estimate_inloss",
     "ws_estimate_unet",
     "ws_weights",
 ]

@@ -7,8 +7,10 @@
   mean over the lowest-HILL-cost ``frac`` of the interior (``-sca`` rows).
 - ``ws_estimate_unet``: the U-Net variant: mean instead of a weighted
   sum, no clipping, 1-px border crop applied to x before the product.
+- ``ws_estimate_inloss``: the differentiable estimate of the training
+  losses, on [B, C, H, W] (or [B, H, W]) in [0, 1].
 
-Everything operates on [B, H, W] batches on the device of its input.
+Everything else operates on [B, H, W] batches on the device of its input.
 """
 
 import typing
@@ -144,3 +146,21 @@ def ws_estimate_unet(
     beta_hat = torch.mean((x1 - x1_bar) * (x1 - x_hat), dim=(1, 2))
     l1 = torch.mean(torch.abs(x1 - x_hat), dim=(1, 2))
     return beta_hat, l1
+
+
+def ws_estimate_inloss(inputs: torch.Tensor,
+                       outputs: torch.Tensor) -> torch.Tensor:
+    """In-graph WS estimate for the training losses, [B] from [B, C, H, W]
+    (or [B, H, W]) in [0, 1]: x255, round (half to even, as ``jnp.round``)
+    then XOR 1 on int32, uniform weights 1/(pixels per image), the sum per
+    image, clipped at 0.  Differentiable with respect to ``outputs``; the
+    flipped pixels carry no gradient.  The clip is ``torch.maximum``,
+    whose gradient splits a tie at 0 in half, as ``jnp.maximum``'s does."""
+    x = inputs * 255.0
+    y = outputs * 255.0
+    x_bar = torch.bitwise_xor(torch.round(x).to(torch.int32), 1).to(
+        x.dtype).detach()
+    axes = tuple(range(1, x.ndim))
+    n = int(np.prod(x.shape[1:]))
+    beta_hat = torch.sum((x - x_bar) * (x - y), dim=axes) / n
+    return torch.maximum(beta_hat, beta_hat.new_zeros(()))
