@@ -96,6 +96,30 @@ kernel against its plain PyTorch version:
    covers (the golden batches, 128x128) for 2 epochs of 2 steps, its run
    loaded with ``load_pretrained_unet`` (the weights of ``model/best``)
    and one batch served through ``predict_batch``.
+12. the B0 training path (``train.train_b0``, ``train.bn_recalibrate``)
+   and ``filters-eval``'s step, which run no TPU kernel (JAX trains B0 on
+   XLA convs and has no Pallas kernel on ``filters-eval``; the phase
+   checks that B1 and B2 do not launch): (a) the steps of
+   ``weights/golden/p128_b0_train_step.npz`` (JAX's draws, B=2 pairs,
+   128x128, from the committed strided run): the committed recipe
+   (``freeze_bn``) against JAX's loss (rel 1e-4) and gradients
+   (max|d|/max|g| 1e-3) and three AdamW steps; the live step (batch
+   statistics, head dropout, the running update) in float64 on JAX's
+   inputs against JAX's float64 step (1e-6), and in f32 against JAX's f32
+   and float64 steps (loss rel and gradients 1e-3: the step's own f32
+   noise); (b) both committed B0 recipes at full width, 512x512, B=2
+   pairs, f32 (TF32 off) and bf16, 5 timed steps each: step ms by CUDA
+   events, img/s by host clock (4 images a step), peak memory, and of one
+   profiled step the busy share, the kernels launched and the top ones;
+   (c) the card against the CPU on the recipe's golden
+   draws; (d) ``train_names`` on ``.npy`` covers for 2 epochs of 2 steps,
+   resumed from a copy of the committed strided run, its ``best.npz``
+   loaded with ``load_pretrained_b0`` and scored by ``infer_b0``, then
+   recalibrated (``recalibrate_names``: only the running statistics
+   move); (e) ``filters-eval``'s step (``ws.mae_wmae``) on the golden
+   covers against ``weights/golden/p128_filters.npz`` (every ``inbayer``,
+   and the color4 planes), and timed at 512x512, B=128 (33 million cost
+   values, beyond ``torch.quantile``'s 2^24), KB on the luminance plane.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -130,6 +154,13 @@ REPO = pathlib.Path(__file__).resolve().parent
 GOLDEN = REPO / "weights" / "golden" / "p128_lsbr.npz"
 GOLDEN_B0 = REPO / "weights" / "golden" / "p128_b0.npz"
 GOLDEN_TRAIN = REPO / "weights" / "golden" / "p128_train_step.npz"
+GOLDEN_B0_TRAIN = REPO / "weights" / "golden" / "p128_b0_train_step.npz"
+GOLDEN_FILTERS = REPO / "weights" / "golden" / "p128_filters.npz"
+B0_RUNS = {
+    "strided": "260817154325-tpu-b0-alpha_mix0.1-0.05-0.01_grayscale_"
+               "crossentropy_lr_2e-05_dr_0.2",
+    "no stem stride": "260818140316-tpu-b0-nostride-alpha_mix0.1-0.05-0.01_"
+                      "grayscale_crossentropy_lr_2e-05_dr_0.2"}
 # P(stego) of the trained B0 runs against JAX (tests/test_torch_b0.py):
 # f32 sums in another order move logits of up to 100 by about 3e-6
 # relative, a P(stego) near 0.5 by up to 3.6e-5 on the CPU
@@ -318,9 +349,10 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
     device busy time per step (``busy_ms``: the sum of the card's kernel
     and copy events; ``busy_union_ms``: the time at least one of them
     runs, which is less where cuDNN runs kernels on several streams at
-    once) and the kernels that take most of the sum.  The busy share is
-    the union over the wall time; the profiler's own cost inflates the
-    wall time, so it is a lower bound."""
+    once), the kernels launched per step (``kernels``: device events other
+    than copies and fills) and the kernels that take most of the sum.  The
+    busy share is the union over the wall time; the profiler's own cost
+    inflates the wall time, so it is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,12 +365,16 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    by_name, spans = {}, []
+    by_name, spans, kernels = {}, [], 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # kernels and copies only: a user annotation on the device (the
+        # optimizer's step) spans kernels counted already, and the gaps
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / steps
             spans.append((e.time_range.start, e.time_range.end))
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
     busy = sum(by_name.values())
     union_us, reach = 0.0, None
     for start, end in sorted(spans):
@@ -351,6 +387,7 @@ def device_profile(fn, steps: int, top: int = 6) -> dict:
     union = union_us / 1e3 / steps
     return {"wall_ms": wall_ms, "busy_ms": busy, "busy_union_ms": union,
             "busy_share": union / wall_ms if by_name else None,
+            "kernels": kernels / steps,
             "layout_ms": {pat: sum(ms for n, ms in by_name.items()
                                    if pat in n) for pat in LAYOUT_KERNELS},
             "copy_ms": {pat: sum(ms for n, ms in by_name.items()
@@ -1009,6 +1046,8 @@ def time_recipe(label: str, r: dict, smi_line: str) -> dict:
            "img_per_s": B * n / host_s,
            "peak_mem_gib": peak_mem / 2 ** 30,
            "busy_share": prof["busy_share"],
+           "kernels_per_step": prof["kernels"] if prof["busy_share"]
+           is not None else "not measured",
            "top": prof["top"] if prof["busy_share"] is not None
            else "not measured", "top_ops": ops, "loss": losses[-1]}
     print(f"training (b), full width ({smi_line}): " + json.dumps(row))
@@ -1198,6 +1237,355 @@ def training_path(smi_line: str) -> dict:
           f"predict_batch: {exp.name}; beta_hat {beta.cpu().numpy()}")
     check(fused_reflect_conv.launches == 0 and fused_ws.launches == 0,
           "a TPU-kernel port launched on the training path")
+    return out
+
+
+def _b0_config(run: str, **over) -> dict:
+    """The committed config of a B0 run (the keys the trainer takes), with
+    ``over`` applied."""
+    import dataclasses
+
+    from wsunet_tpu_torch.train.checkpoint import load_config
+    from wsunet_tpu_torch.train.config import B0TrainConfig
+
+    conf = load_config(REPO / "weights" / "b0" / "LSBR" / run)
+    keys = {f.name for f in dataclasses.fields(B0TrainConfig)}
+    return B0TrainConfig.validate({**{k: v for k, v in conf.items()
+                                      if k in keys}, **over})
+
+
+def _b0_model(cfg: dict, run: str, device, dtype=None):
+    """The B0 of ``cfg`` with the committed run's parameters and running
+    statistics, on ``device`` (in ``dtype``, parameters included, when
+    given: the float64 reference)."""
+    from wsunet_tpu_torch.models import b0_state_dict_from_flax
+    from wsunet_tpu_torch.train.checkpoint import load_params
+    from wsunet_tpu_torch.train.train_b0 import build_model
+
+    model = build_model(cfg)
+    model.load_state_dict(b0_state_dict_from_flax(*load_params(
+        REPO / "weights" / "b0" / "LSBR" / run)))
+    if dtype is not None:
+        model = model.to(dtype)
+        model.compute_dtype = dtype
+    return model.to(device)
+
+
+def _b0_grads(model) -> tuple:
+    """(gradients, running statistics) of a B0 in the Flax layout."""
+    from wsunet_tpu_torch.models import flax_b0_params_from_state_dict
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree
+
+    grads = flax_b0_params_from_state_dict(
+        {k: p.grad for k, p in model.named_parameters()})[0]
+    stats = flax_b0_params_from_state_dict(model.state_dict())[1]
+    return flatten_tree(grads), flatten_tree(stats)
+
+
+def time_b0_recipe(label: str, run: str, dtype: str, smi_line: str) -> dict:
+    """Train the committed B0 run ``run`` in its own recipe (``freeze_bn``,
+    high-pass and quadratic stem, parity features or the LSBr plane, the
+    alpha mix, flips and rot90, AdamW under the cosine schedule) in
+    ``dtype`` on seeded 512x512 covers, B=2 pairs: 2 warm-up steps, 5
+    timed (step ms by CUDA events, img/s of the 4 images a step by host
+    clock, peak memory), then one profiled step."""
+    from wsunet_tpu_torch.train.train_b0 import _make_steps
+    from wsunet_tpu_torch.train.train_unet import make_optimizer
+
+    dev = torch.device("cuda")
+    cfg = _b0_config(run, compute_dtype=dtype)
+    B = cfg["batch_size"]
+    model = _b0_model(cfg, run, dev)
+    opt, sch = make_optimizer(cfg, cfg["steps_per_epoch"],
+                              model.parameters())
+    step = _make_steps(model, opt, sch, cfg)[0]
+    x = torch.from_numpy(smooth_covers(B, 512, seed=51)).to(dev)
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        step(x, mask, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = [float(step(x, mask, gen)[0]) for _ in range(n)]
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"B0 {label}: a loss is not finite")
+    prof = device_profile(lambda: step(x, mask, gen), 1, top=6)
+    ops = top_ops(lambda: step(x, mask, gen))
+    row = {"recipe": label, "dtype": dtype, "pairs": B, "crop": cfg["crop"],
+           "step_ms": start.elapsed_time(end) / n,
+           "img_per_s": 2 * B * n / host_s,
+           "host_ms": 1e3 * host_s / n,
+           "peak_mem_gib": peak_mem / 2 ** 30,
+           "busy_share": prof["busy_share"],
+           "kernels_per_step": prof["kernels"] if prof["busy_share"]
+           is not None else "not measured",
+           "top": prof["top"] if prof["busy_share"] is not None
+           else "not measured", "top_ops": ops, "loss": losses[-1]}
+    print(f"B0 training (b), full width ({smi_line}): " + json.dumps(row))
+    del model, opt, sch, step, x
+    torch.cuda.empty_cache()
+    return row
+
+
+def b0_training_path(smi_line: str) -> dict:
+    """Phase 12: the B0 trainer and ``filters-eval``'s step on the card
+    ((a)-(e) in the module docstring).  B1 and B2 are off this path: the
+    phase checks that neither launches."""
+    from wsunet_tpu_torch.models import b0_state_dict_from_flax
+    from wsunet_tpu_torch.detect import infer_b0, load_pretrained_b0
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.ops.filters import NAMED_FILTERS, taps_to_kernel2d
+    from wsunet_tpu_torch.train.bn_recalibrate import recalibrate_names
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree, load_params
+    from wsunet_tpu_torch.train.train_b0 import (B0Sampler, _make_steps,
+                                                 train_names)
+    from wsunet_tpu_torch.train.train_unet import make_optimizer
+    from wsunet_tpu_torch.ws import mae_wmae
+
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    out = {}
+
+    # (a) the golden steps: JAX's draws on the committed strided run
+    z = np.load(GOLDEN_B0_TRAIN)
+    run = str(z["run"])
+    check(run == B0_RUNS["strided"], f"golden B0 run {run}")
+    cfg = _b0_config(run, **json.loads(str(z["config"])))
+
+    def draws(prefix, device):
+        d = {k[len(prefix):]: torch.from_numpy(z[k]) for k in z.files
+             if k.startswith(prefix)}
+        return {k: (v.long() if v.dtype == torch.int32 else v).to(device)
+                for k, v in d.items()}
+
+    def recipe_step(device):
+        m = _b0_model(cfg, run, device).eval()
+        loss, logits, _ = B0Sampler(
+            m, cfg["stego_method"], cfg["alpha"], crop=cfg["crop"],
+            augment=cfg["augment"]).loss(
+            torch.from_numpy(z["pixels"][0]).to(device),
+            torch.from_numpy(z["mask"][0]).to(device),
+            draws("draws/0/", device))
+        loss.backward()
+        return float(loss), logits.detach().cpu().numpy(), _b0_grads(m)[0]
+
+    def live_step(dtype, jitted_inputs=False):
+        m = _b0_model(cfg, run, dev, dtype).train()
+        sampler = B0Sampler(
+            m, cfg["stego_method"], cfg["alpha"], crop=cfg["crop"],
+            augment=cfg["augment"], dropout_rate=cfg["drop_rate"])
+        if jitted_inputs:
+            # JAX's jitted f32 preprocessing, per pixel value: the inputs
+            # its float64 step took
+            lut = torch.from_numpy(z["live/preprocess_lut"]).to(dev)
+            sampler.preprocess = lambda x_u8: lut[x_u8.long()][:, None]
+        loss, logits, _ = sampler.loss(
+            torch.from_numpy(z["pixels"][-1]).to(dev),
+            torch.from_numpy(z["mask"][-1]).to(dev),
+            draws("live/draws/", dev))
+        loss.backward()
+        return (float(loss), logits.detach().double().cpu().numpy(),
+                *_b0_grads(m))
+
+    loss_card, logits_card, g_card = recipe_step(dev)
+    full = [k[len("grad/"):] for k in z.files if k.startswith("grad/")]
+    d_loss = abs(loss_card / float(z["loss"]) - 1)
+    d_logits = float(np.abs(logits_card - z["logits"]).max())
+    d_grad = _rel_grad_err(g_card, {k: z[f"grad/{k}"] for k in full})
+    d_norm = max(abs(float(np.linalg.norm(g_card[k])) /
+                     float(z[f"grad_norm/{k}"]) - 1) for k in g_card)
+    check(d_loss <= 1e-4, f"B0 golden step loss: rel {d_loss:.3e} > 1e-4")
+    check(d_grad <= 1e-3, f"B0 golden gradients: {d_grad:.3e} > 1e-3")
+    check(d_norm <= 1e-3, f"B0 golden gradient norms: rel {d_norm:.3e}")
+    m = _b0_model(cfg, run, dev)
+    opt, sch = make_optimizer(cfg, cfg["steps_per_epoch"], m.parameters())
+    train_step = _make_steps(m, opt, sch, cfg)[0]
+    losses = [float(train_step(torch.from_numpy(z["pixels"][s]).to(dev),
+                               torch.from_numpy(z["mask"][s]).to(dev),
+                               draws=draws(f"draws/{s}/", dev))[0])
+              for s in range(len(z["adamw_loss"]))]
+    d_adam = float(np.max(np.abs(np.array(losses) / z["adamw_loss"] - 1)))
+    check(d_adam <= 1e-4, f"B0 golden AdamW losses: rel {d_adam:.3e}")
+    del m, opt, sch, train_step
+
+    l64, _, g64, s64 = live_step(torch.float64, jitted_inputs=True)
+    l32, _, g32, s32 = live_step(torch.float32)
+
+    def live_errs(tag, loss, grads, stats):
+        """(loss rel, gradients max|d|/max|g|, statistics rel) against
+        JAX's ``tag`` step (``live`` f32, ``live64`` float64)."""
+        want = {k[len(f"{tag}/grad/"):]: z[k] for k in z.files
+                if k.startswith(f"{tag}/grad/")}
+        return (abs(loss / float(z[f"{tag}/loss"]) - 1),
+                _rel_grad_err(grads, want),
+                max(float(np.abs(stats[k] - z[f"{tag}/stats/{k}"]).max() /
+                          np.abs(z[f"{tag}/stats/{k}"]).max())
+                    for k in (k[len(f"{tag}/stats/"):] for k in z.files
+                              if k.startswith(f"{tag}/stats/"))))
+
+    v = live_errs("live64", l64, g64, s64)
+    f = live_errs("live", l32, g32, s32)
+    f64 = live_errs("live64", l32, g32, s32)
+    check(max(v) <= 1e-6,
+          f"B0 live step (float64 on the card) != JAX's float64: loss "
+          f"{v[0]:.3e}, gradients {v[1]:.3e}, statistics {v[2]:.3e}")
+    # the live step's own f32 rounding: at 4x4 and 2x2 the deepest batch
+    # norms normalise over 64 and 16 values, so the step amplifies an ulp
+    # (on the CPU the port's f32 gradients lie 4.2e-4 from JAX's f32 and
+    # JAX's f32 6e-5 from its float64; loss 2.2e-4)
+    for e, what in ((f, "JAX's f32"), (f64, "JAX's float64")):
+        check(e[0] <= 1e-3 and e[1] <= 1e-3 and e[2] <= 1e-4,
+              f"B0 live step f32 on the card != {what}: loss {e[0]:.3e}, "
+              f"gradients {e[1]:.3e}, statistics {e[2]:.3e}")
+    out["golden"] = {"loss_rel": d_loss, "logits_abs": d_logits,
+                     "grad_rel": d_grad, "grad_norm_rel": d_norm,
+                     "adamw_loss_rel": d_adam,
+                     "live_f64_vs_jax_f64": dict(zip(
+                         ("loss_rel", "grad_rel", "stats_rel"), v)),
+                     "live_f32_vs_jax_f32": dict(zip(
+                         ("loss_rel", "grad_rel", "stats_rel"), f)),
+                     "live_f32_vs_jax_f64": dict(zip(
+                         ("loss_rel", "grad_rel", "stats_rel"), f64))}
+    print(f"B0 training (a), golden steps against JAX ({smi_line}): recipe "
+          f"(freeze_bn) loss {loss_card:.8f} (JAX {float(z['loss']):.8f}, "
+          f"rel {d_loss:.3e} <= 1e-4), logits max |d| {d_logits:.3e}, "
+          f"gradients max|d|/max|g| {d_grad:.3e} (<= 1e-3), norms rel "
+          f"{d_norm:.3e}; 3 AdamW steps: losses rel {d_adam:.3e} (<= 1e-4); "
+          f"live step (batch statistics, head dropout, running update), "
+          f"loss / gradients / running statistics: in float64 on JAX's "
+          f"inputs against JAX's float64 {v[0]:.3e} / {v[1]:.3e} / "
+          f"{v[2]:.3e} (<= 1e-6); in f32 against JAX's f32 {f[0]:.3e} / "
+          f"{f[1]:.3e} / {f[2]:.3e} and against JAX's float64 {f64[0]:.3e} "
+          f"/ {f64[1]:.3e} / {f64[2]:.3e} (<= 1e-3 / 1e-3 / 1e-4)")
+
+    # (c) the card against the CPU on the recipe's golden draws
+    loss_cpu, _, g_cpu = recipe_step(cpu)
+    c_loss = abs(loss_card / loss_cpu - 1)
+    c_grad = _rel_grad_err(g_card, g_cpu)
+    check(c_loss <= 1e-4 and c_grad <= 1e-3,
+          f"B0 card vs CPU: loss rel {c_loss:.3e}, gradients {c_grad:.3e}")
+    out["card_vs_cpu"] = {"loss_rel": c_loss, "grad_rel": c_grad}
+    print(f"B0 training (c), card against CPU on the golden draws "
+          f"({smi_line}): loss rel {c_loss:.3e} (<= 1e-4), gradients "
+          f"{c_grad:.3e} (<= 1e-3)")
+
+    # (b) both committed recipes at full width, f32 and bf16
+    out["full_width"] = [time_b0_recipe(label, r, dtype, smi_line)
+                         for label, r in B0_RUNS.items()
+                         for dtype in ("float32", "bfloat16")]
+    print("B0 training step_ms: CUDA events over 5 steps after 2 warm-up "
+          "steps (draws, flips and rot90, the alpha mix, LSBr, "
+          "preprocessing, forward and backward in eval mode (freeze_bn), "
+          "AdamW and schedule; the host reads each loss, as the trainer "
+          "does); img_per_s: the 4 images of a step (2 covers, 2 stegos) "
+          "by host clock over the same 5 steps; peak_mem: "
+          "torch.cuda.max_memory_allocated over them; busy_share: union "
+          "of device kernel spans over host wall time of one profiled "
+          "step; kernels_per_step: the kernels launched in that step")
+
+    # (d) the loop closes: train_names resumed from the committed run,
+    # load and score the result, then recalibrate it
+    root = REPO / "build" / "smoke_b0_train"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    pixels = z["pixels"].reshape(-1, 128, 128)
+    names = []
+    for i, img in enumerate(pixels):
+        names.append(f"images/{i}.npy")
+        np.save(root / names[-1], img)
+    shutil.copytree(REPO / "weights" / "b0" / "LSBR" / run,
+                    root / "runs" / "LSBR" / run)
+    cfg_d = {**cfg, "crop": 64, "steps_per_epoch": 2, "num_epochs": 2,
+             "val_steps": 1, "resume": run}
+    exp = train_names(cfg_d, root, names[:6], names[6:], root / "runs",
+                      device="cuda", reader=np.load)
+    model, _ = load_pretrained_b0(exp.parent, exp.name, device="cuda")
+    prob = infer_b0(model, pixels[:4], device="cuda")
+    check(prob.shape == (4,) and bool(torch.isfinite(prob).all()),
+          "the trained run's P(stego) is not finite")
+    rows_csv = (exp / "log" / "scalars.csv").read_text().split()
+    check(len(rows_csv) == 16, f"scalars.csv has {len(rows_csv)} rows")
+    dst = recalibrate_names(exp, root, names, num_batches=2, batch_size=2,
+                            device="cuda", reader=np.load)
+    (p0, s0), (p1, s1) = load_params(exp), load_params(dst)
+    f0, f1, t0, t1 = map(flatten_tree, (p0, p1, s0, s1))
+    same = sorted(f0) == sorted(f1) and all(np.array_equal(f0[k], f1[k])
+                                            for k in f0)
+    moved = sorted(t0) == sorted(t1) and all(
+        not np.array_equal(t0[k], t1[k]) for k in t0)
+    check(same and moved, "bn_recalibrate changed more than batch_stats")
+    check(sorted(p.name for p in (dst / "model").iterdir()) == ["best"],
+          "the -bnrecal run keeps a latest checkpoint")
+    sd = b0_state_dict_from_flax(p1, s1)
+    check(all(torch.equal(v.cpu(), sd[k]) for k, v in
+              load_pretrained_b0(dst.parent, dst.name,
+                                 device="cuda")[0].state_dict().items()
+              if not k.endswith("num_batches_tracked")),
+          "the recalibrated run does not load as written")
+    out["loop"] = {"run": exp.name, "prob": prob.tolist(),
+                   "recalibrated": dst.name}
+    print(f"B0 training (d), train_names (resumed from {run}) -> "
+          f"load_pretrained_b0 -> infer_b0: {exp.name}; P(stego) "
+          f"{prob.cpu().numpy()}; recalibrate_names -> {dst.name}: "
+          f"parameters unchanged, all {len(t0)} running statistics moved")
+    shutil.rmtree(root)
+
+    # (e) filters-eval's step: against JAX on the golden covers, then
+    # timed at 512x512, B=128
+    zf = np.load(GOLDEN_FILTERS)
+    covers = torch.from_numpy(np.load(GOLDEN)["pixels"][0]).to(dev)
+    color = torch.from_numpy(np.load(GOLDEN_B0)["color/pixels"]).to(dev)
+    worst = 0.0
+    for f in zf["filters"]:
+        kernel = taps_to_kernel2d(NAMED_FILTERS[str(f)])
+        for b in zf["inbayer"]:
+            b = str(b)
+            got = [mae_wmae(covers[i:i + 8], kernel,
+                            inbayer=None if b == "none" else b)
+                   for i in range(0, len(covers), 8)]
+            for j, key in enumerate(("mae", "wmae")):
+                want = zf[f"{key}/{f}/{b}"]
+                v = torch.cat([g[j] for g in got]).cpu().numpy()
+                worst = max(worst, float(np.abs(v / want - 1).max()))
+        for c in range(3):
+            got = [mae_wmae(p, kernel, channel=c) for p in color]
+            for j, key in enumerate(("mae", "wmae")):
+                v = torch.stack([g[j] for g in got]).cpu().numpy()
+                worst = max(worst, float(np.abs(
+                    v / zf[f"color/{key}/{f}/{c}"] - 1).max()))
+    check(worst <= 1e-5, f"filters-eval on the card != JAX: rel {worst:.3e}")
+    big = torch.from_numpy(smooth_covers(128, 512, seed=61)).to(dev)
+    kb = taps_to_kernel2d(NAMED_FILTERS["KB"])
+    mae, wmae = mae_wmae(big, kb)
+    small = mae_wmae(big[:4], kb)
+    d_big = max(float(np.abs(a[:4].cpu().numpy() / b.cpu().numpy() - 1)
+                      .max()) for a, b in zip((mae, wmae), small))
+    check(bool(torch.isfinite(mae).all() & torch.isfinite(wmae).all()) and
+          d_big <= 1e-6, f"filters-eval at B=128 != B=4 ({d_big:.3e})")
+    ms = cuda_ms(lambda v: mae_wmae(v, kb), [big], reps=3, iters=5)
+    out["filters"] = {"golden_rel": worst, "b128_vs_b4_rel": d_big,
+                      "ms_b128": ms, "img_per_s": 128e3 / ms}
+    print(f"filters-eval (e) on the card ({smi_line}): KB and AVG, every "
+          f"inbayer on the 64 golden covers and channels 0-2 of the color4 "
+          f"case against JAX: max rel {worst:.3e} (<= 1e-5); KB, channel "
+          f"3, 512x512, B=128 ({128 * 510 * 510:,} cost values a decile "
+          f"batch): {ms:.3f} ms a batch by CUDA events, "
+          f"{128e3 / ms:.1f} img/s; B=128 rows against B=4: rel "
+          f"{d_big:.3e}")
+    del big, covers, color
+    torch.cuda.empty_cache()
+    check(fused_reflect_conv.launches == 0 and fused_ws.launches == 0,
+          "a TPU-kernel port launched on the B0 training path")
     return out
 
 
@@ -1739,6 +2127,10 @@ def main() -> int:
     # ---- 11. the U-Net training path
     training_path(smi.stdout.strip().splitlines()[0])
     t = phase(11, "U-Net training path", t)
+
+    # ---- 12. the B0 training path and filters-eval
+    b0_training_path(smi.stdout.strip().splitlines()[0])
+    t = phase(12, "B0 training path and filters-eval", t)
 
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{

@@ -15,6 +15,8 @@ port reads with numpy and json alone:
     weights/golden/p128_lsbr.npz              (the card's golden files)
     weights/golden/p128_b0.npz
     weights/golden/p128_train_step.npz
+    weights/golden/p128_b0_train_step.npz
+    weights/golden/p128_filters.npz
 
 The golden file holds the 64 covers of ``data_ablation/p128``, their LSBr
 stego at alpha 0.1 and 0.01 (drawn as ``python -m wsunet_tpu simulate``
@@ -39,6 +41,28 @@ gradients of the first step (in full for ``e1_conv1``, ``up1`` and
 ``outconv``, as a norm for every tensor), read by handing ``_make_step`` an
 optimizer that returns the gradients as its state, and the loss of each of
 three AdamW steps and every parameter's norm after them.
+
+``p128_b0_train_step.npz`` holds steps of the JAX B0 trainer
+(``train/train_b0._make_steps``) on covers of ``data_ablation/p128``, B=2
+cover/stego pairs, from the committed strided LSBR B0 run (parameters and
+running statistics), with every draw replayed from the trainer's key
+splits (``jax_b0_step_draws``): in the committed recipe (``freeze_bn``,
+high-pass stem, quadratic stem, parity features, alpha mix, flips and
+rot90, lr 2e-5 under the cosine schedule) the loss, logits and gradients
+of the first step (in full for the stem, one MBConv's depthwise,
+squeeze-excite and projection convs, and the classifier; as a norm for
+every tensor) and the loss of each of three AdamW steps with every
+parameter's norm and distance from the start after them; one step with
+``freeze_bn`` off (batch statistics, head dropout and the running update
+live): its loss, logits, gradients and running statistics (in full for
+the stem's and the head's norms, as norms for all), the table of its f32
+preprocessing per pixel value, and the same step again with JAX's model
+in float64 (``live64/``, ``jax_b0_live_step_f64``) as the exact reference
+of that ill-conditioned step; and the stem kernel
+of a ``get_b0(..., stem_init="highpass")`` init.  ``p128_filters.npz``
+holds ``filters-eval``'s per-image MAE and wMAE for KB and AVG on the 64
+covers (channel 3, every ``inbayer``) and on the color4 case's covers and
+stego (channels 0, 1 and 2).
 
     python scripts/export_torch_weights.py                 # the defaults
     python scripts/export_torch_weights.py --run models/unet/HILLR/<run>
@@ -93,17 +117,18 @@ def _cpu_jax():
     return jax
 
 
-def flatten_tree(tree, prefix: str = "") -> dict:
-    """Nested dict of arrays -> {'/'-joined path: f32 or integer array}."""
+def flatten_tree(tree, prefix: str = "", float_dtype=np.float32) -> dict:
+    """Nested dict of arrays -> {'/'-joined path: ``float_dtype`` or
+    integer array}."""
     out = {}
     for key in sorted(tree):
         path = f"{prefix}/{key}" if prefix else str(key)
         value = tree[key]
         if isinstance(value, dict) or hasattr(value, "items"):
-            out.update(flatten_tree(dict(value), path))
+            out.update(flatten_tree(dict(value), path, float_dtype))
         else:
             arr = np.asarray(value)
-            out[path] = arr.astype(np.float32) if arr.dtype.kind == "f" \
+            out[path] = arr.astype(float_dtype) if arr.dtype.kind == "f" \
                 else arr
     return out
 
@@ -500,6 +525,351 @@ def golden_b0(b0_runs, out: pathlib.Path) -> pathlib.Path:
     return out
 
 
+# the B0 training golden file: the committed strided recipe (the config of
+# weights/b0/LSBR/260817154325-*) on the 128x128 p128 covers, B=2 pairs;
+# two epochs of three steps, so the cosine schedule has no warmup and every
+# AdamW step moves the parameters; the first step's mask drops its second
+# image, so the masked mean is held
+B0_TRAIN_CONFIG = dict(
+    network="b0", crop=512, augment=True, stego_method="LSBR",
+    alpha=[0.1, 0.05, 0.01], val_alpha=[0.1, 0.05, 0.01], learning_rate=2e-5,
+    lr_schedule="cosine", batch_size=2, steps_per_epoch=3, num_epochs=2,
+    drop_rate=0.2, stem_init="highpass", quadratic_stem=True,
+    parity_features=True, freeze_bn=True, compute_dtype="float32", seed=3)
+B0_TRAIN_STEPS = 3
+B0_LIVE_SEED = 5
+B0_FULL_GRADS = (
+    "conv_stem/kernel", "stage1_block0/dw_conv/kernel",
+    "stage1_block0/se/reduce/kernel", "stage1_block0/se/reduce/bias",
+    "stage1_block0/se/expand/kernel", "stage1_block0/se/expand/bias",
+    "stage1_block0/project_conv/kernel", "classifier/kernel",
+    "classifier/bias")
+B0_FULL_STATS = ("bn_stem/mean", "bn_stem/var", "bn_head/mean",
+                 "bn_head/var")
+
+
+def jax_b0_step_draws(jax, key, shape, cfg: dict, rates,
+                      drop_rate=None) -> dict:
+    """The draws the JAX B0 trainer's step makes from ``key`` = (the
+    step's key, its dropout key): ``make_pair``'s splits (crop, flips and
+    quarter turns, the per-image rate, LSBr's mask and bits) and with
+    ``drop_rate`` the head dropout's keep mask [2B, 1280], under the names
+    of the port's ``train.train_b0.B0Sampler.draw``, as numpy."""
+    import jax.numpy as jnp
+
+    B, H, W = shape
+    key, dropout_key = key
+    k_crop, k_aug, k_alpha, k_embed = jax.random.split(key, 4)
+    d, crop = {}, cfg.get("crop")
+    h, w = H, W
+    if crop is not None and crop < H:
+        ki, kj = jax.random.split(k_crop)
+        d["oi"] = jax.random.randint(ki, (B,), 0, H - crop + 1)
+        d["oj"] = jax.random.randint(kj, (B,), 0, W - crop + 1)
+        h = w = crop
+    if cfg.get("augment"):
+        kf, kr = jax.random.split(k_aug)
+        kh, kv = jax.random.split(kf)
+        d["flip_h"] = jax.random.bernoulli(kh, shape=(B, 1, 1, 1)).reshape(B)
+        d["flip_v"] = jax.random.bernoulli(kv, shape=(B, 1, 1, 1)).reshape(B)
+        d["k"] = jax.random.randint(kr, (B,), 0, 4)
+    if isinstance(rates, (list, tuple)):
+        r = jnp.asarray(rates, jnp.float32)
+        d["alphas"] = r[jax.random.randint(k_alpha, (B,), 0, len(r))]
+    else:
+        d["alphas"] = jnp.full((B,), float(rates), jnp.float32)
+    if cfg["stego_method"].upper().startswith("LSB"):
+        k1, k2 = jax.random.split(k_embed)
+        d["embed"] = jax.random.uniform(k1, (B, h, w)) < \
+            d["alphas"][:, None, None]
+        d["bits"] = jax.random.bernoulli(k2, 0.5, (B, h, w))
+    if drop_rate:
+        d["keep"] = jax_head_dropout_keep(jax, dropout_key, 2 * B, drop_rate)
+    return {k: np.asarray(v) for k, v in d.items()}
+
+
+def jax_head_dropout_keep(jax, dropout_key, n: int, rate: float,
+                          width: int = 1280) -> np.ndarray:
+    """The keep mask [n, width] that the Flax B0's head ``nn.Dropout``
+    (auto-named ``Dropout_0``) draws from the dropout key of ``apply``:
+    a probe module with a child of that name makes the same
+    ``make_rng("dropout")`` call."""
+    from flax import linen as nn
+
+    class Child(nn.Module):
+        @nn.compact
+        def __call__(self):
+            return jax.random.bernoulli(self.make_rng("dropout"),
+                                        p=1.0 - rate, shape=(n, width))
+
+    class Probe(nn.Module):
+        @nn.compact
+        def __call__(self):
+            return Child(name="Dropout_0")()
+
+    return np.asarray(Probe().apply({}, rngs={"dropout": dropout_key}))
+
+
+class _Capture:
+    """A Flax module's stand-in for ``_make_steps`` that keeps, through a
+    host callback, the inputs of each ``apply``."""
+
+    def __init__(self, module):
+        self.module, self.inputs = module, []
+
+    def apply(self, variables, x, **kw):
+        import jax
+
+        jax.debug.callback(lambda v: self.inputs.append(np.asarray(v)), x)
+        return self.module.apply(variables, x, **kw)
+
+
+def jax_b0_live_step_f64(module, params, stats, x, mask, keep,
+                         rate: float) -> tuple:
+    """The JAX B0 trainer's live step (``loss_fn`` in training mode) with
+    ``module`` (compute dtype float64) under ``jax.enable_x64``, on the
+    inputs ``x`` [2B, H, W, C] that the f32 step fed its model: parameters,
+    statistics, inputs and loss in float64.  Two calls of the model are
+    intercepted: the head dropout applies the f32 step's keep mask (under
+    x64 ``jax.random`` would draw another), and the classifier, which the
+    model fixes to f32, runs in float64 on its (f32-cast) input, as its
+    f32 rounding alone moves the step's gradients by about 4e-5.  ->
+    (loss, logits, gradients, running statistics), as numpy."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from flax import linen as nn
+
+    def in_float64(next_fun, args, kwargs, context):
+        mod, v = context.module, args[0] if args else None
+        if context.method_name != "__call__":
+            return next_fun(*args, **kwargs)
+        if isinstance(mod, nn.Dropout):
+            return jax.lax.select(jnp.asarray(keep), v / (1.0 - rate),
+                                  jnp.zeros_like(v))
+        if isinstance(mod, nn.Dense):
+            p = mod.variables["params"]
+            return v.astype(jnp.float64) @ p["kernel"] + p["bias"]
+        return next_fun(*args, **kwargs)
+
+    with jax.enable_x64(True):
+        f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                                     t)
+        B = len(mask)
+        y = jnp.concatenate([jnp.zeros(B, jnp.int32), jnp.ones(B, jnp.int32)])
+        w = jnp.asarray(np.concatenate([mask, mask]), jnp.float64)
+
+        def loss_fn(p):
+            logits, mutated = module.apply(
+                {"params": p, "batch_stats": f64(stats)}, f64(x), train=True,
+                mutable=["batch_stats"])
+            ce = optax.softmax_cross_entropy_with_integer_labels(logits, y)
+            return jnp.sum(ce * w) / jnp.maximum(jnp.sum(w), 1.0), \
+                (logits, mutated["batch_stats"])
+
+        with nn.intercept_methods(in_float64):
+            (loss, (logits, new_stats)), grads = jax.jit(jax.value_and_grad(
+                loss_fn, has_aux=True))(f64(params))
+        return tuple(jax.tree.map(np.asarray, v)
+                     for v in (loss, logits, grads, new_stats))
+
+
+def recording(inner):
+    """An optax transformation that runs ``inner`` and keeps the last
+    gradients beside its state: ``_make_steps``' ``train_step`` then
+    returns, as ``opt_state[1]``, the exact gradients of its step, and one
+    compiled step serves the gradients and the AdamW steps."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    def init(params):
+        return inner.init(params), jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        updates, inner_state = inner.update(grads, state[0], params)
+        return updates, (inner_state, grads)
+
+    return optax.GradientTransformation(init, update)
+
+
+def golden_b0_train(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
+    """The B0 training golden file, computed with the JAX trainer's own
+    ``_make_steps`` and ``make_optimizer`` on the CPU."""
+    jax = _cpu_jax()
+    import json
+
+    import jax.numpy as jnp
+
+    from wsunet_tpu.data import load_images, precovers
+    from wsunet_tpu.data.transforms import normalize
+    from wsunet_tpu.detect.b0_eval import (IMAGENET_GREEN_MEAN,
+                                           IMAGENET_GREEN_STD,
+                                           load_pretrained_b0)
+    from wsunet_tpu.models import get_b0
+    from wsunet_tpu.train.config import B0TrainConfig
+    from wsunet_tpu.train.train_b0 import _make_steps
+    from wsunet_tpu.train.train_unet import make_optimizer
+
+    cfg = B0TrainConfig.validate(B0_TRAIN_CONFIG)
+    B = cfg["batch_size"]
+    names = list(precovers(P128)["name"])[:(B0_TRAIN_STEPS + 1) * B]
+    pixels = load_images(P128, names).reshape(B0_TRAIN_STEPS + 1, B, 128,
+                                               128)
+    mask = np.ones((B0_TRAIN_STEPS + 1, B), bool)
+    mask[0, -1] = False
+    variables = load_pretrained_b0(run_dir.parent, run_dir.name)[1]
+    params0, stats0 = variables["params"], variables["batch_stats"]
+
+    def model(c, dtype=jnp.float32):
+        return get_b0(in_channels=1, no_stem_stride=c["no_stem_stride"],
+                      drop_rate=c["drop_rate"], stem_init=c["stem_init"],
+                      quadratic_stem=c["quadratic_stem"],
+                      parity_features=c["parity_features"], norm=c["norm"],
+                      compute_dtype=dtype)
+
+    def keys(seed, n):
+        key, out = jax.random.PRNGKey(seed), []
+        for _ in range(n):
+            key, ek, dk = jax.random.split(key, 3)
+            out.append((ek, dk))
+        return out
+
+    def flat(tree):
+        return flatten_tree(jax.tree.map(np.asarray, tree))
+
+    arrays = {"config": np.array(json.dumps(B0_TRAIN_CONFIG)),
+              "run": np.array(run_dir.name), "pixels": pixels, "mask": mask}
+
+    # the committed recipe: three AdamW steps, the first one's gradients
+    opt = recording(make_optimizer(cfg, cfg["steps_per_epoch"]))
+    step = _make_steps(model(cfg), opt, cfg)[0]
+    params, stats, state = params0, stats0, opt.init(params0)
+    losses = []
+    for s, k in enumerate(keys(cfg["seed"], B0_TRAIN_STEPS)):
+        for name, v in jax_b0_step_draws(jax, k, pixels[s].shape, cfg,
+                                         cfg["alpha"]).items():
+            arrays[f"draws/{s}/{name}"] = v
+        params, stats, state, loss, logits, _ = step(
+            params, stats, state, jnp.asarray(pixels[s]),
+            jnp.asarray(mask[s]), *k)
+        losses.append(float(loss))
+        if s == 0:
+            grads = flat(state[1])
+            arrays["loss"] = np.float32(loss)
+            arrays["logits"] = np.asarray(logits, np.float32)
+            arrays.update({f"grad/{k}": grads[k] for k in B0_FULL_GRADS})
+            arrays.update({f"grad_norm/{k}": np.float32(np.linalg.norm(v))
+                           for k, v in grads.items()})
+    arrays["adamw_loss"] = np.array(losses, np.float32)
+    start, end = flat(params0), flat(params)
+    arrays.update({f"param_norm/{k}": np.float32(np.linalg.norm(v))
+                   for k, v in end.items()})
+    arrays.update({f"param_delta/{k}": np.float32(np.linalg.norm(
+        v - start[k])) for k, v in end.items()})
+
+    # one live step: batch statistics, head dropout, the running update
+    live = {**cfg, "freeze_bn": False}
+    opt = recording(make_optimizer(live, live["steps_per_epoch"]))
+    capture = _Capture(model(live))
+    step = _make_steps(capture, opt, live)[0]
+    (k,) = keys(B0_LIVE_SEED, 1)
+    s = B0_TRAIN_STEPS
+    for name, v in jax_b0_step_draws(jax, k, pixels[s].shape, live,
+                                     live["alpha"],
+                                     drop_rate=live["drop_rate"]).items():
+        arrays[f"live/draws/{name}"] = v
+    _, stats, state, loss, logits, _ = step(
+        params0, stats0, opt.init(params0), jnp.asarray(pixels[s]),
+        jnp.asarray(mask[s]), *k)
+    grads, stats = flat(state[1]), flat(stats)
+    arrays["live/loss"] = np.float32(loss)
+    arrays["live/logits"] = np.asarray(logits, np.float32)
+    arrays.update({f"live/grad/{k}": grads[k] for k in B0_FULL_GRADS})
+    arrays.update({f"live/grad_norm/{k}": np.float32(np.linalg.norm(v))
+                   for k, v in grads.items()})
+    arrays.update({f"live/stats/{k}": stats[k] for k in B0_FULL_STATS})
+    arrays.update({f"live/stats_norm/{k}": np.float32(np.linalg.norm(v))
+                   for k, v in stats.items()})
+
+    # the same live step with the model in float64, on its inputs; XLA
+    # divides by 255 and 0.224 as multiplications, so a jitted step's f32
+    # inputs lie up to an ulp from an eager division: the table of the
+    # jitted preprocessing lets the port's float64 reference take them
+    jax.effects_barrier()
+    (x,) = capture.inputs
+    lut = np.asarray(jax.jit(lambda u: normalize(
+        u.astype(jnp.float32) / 255.0, IMAGENET_GREEN_MEAN,
+        IMAGENET_GREEN_STD))(jnp.arange(256, dtype=jnp.uint8)))
+    assert np.isin(x[..., 0], lut).all()
+    arrays["live/preprocess_lut"] = lut
+    loss, logits, grads, stats = jax_b0_live_step_f64(
+        model(live, jnp.float64), params0, stats0, x, mask[s],
+        arrays["live/draws/keep"], live["drop_rate"])
+    grads, stats = (flatten_tree(t, float_dtype=np.float64)
+                    for t in (grads, stats))
+    arrays["live64/loss"] = np.float64(loss)
+    arrays["live64/logits"] = np.asarray(logits, np.float64)
+    arrays.update({f"live64/grad/{k}": grads[k] for k in B0_FULL_GRADS})
+    arrays.update({f"live64/grad_norm/{k}": np.linalg.norm(v)
+                   for k, v in grads.items()})
+    arrays.update({f"live64/stats/{k}": stats[k] for k in B0_FULL_STATS})
+    arrays.update({f"live64/stats_norm/{k}": np.linalg.norm(v)
+                   for k, v in stats.items()})
+
+    # the high-pass stem of a fresh init (parity features: 2 input planes)
+    v = jax.jit(model(cfg).init)({"params": jax.random.PRNGKey(0),
+                                  "dropout": jax.random.PRNGKey(1)},
+                                 jnp.zeros((1, 32, 32, 1), jnp.float32))
+    arrays["init/conv_stem/kernel"] = np.asarray(
+        v["params"]["conv_stem"]["kernel"], np.float32)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **arrays)
+    return out
+
+
+FILTERS = ("KB", "AVG")
+INBAYER = (None, "00", "01", "10", "11")
+
+
+def golden_filters(out: pathlib.Path) -> pathlib.Path:
+    """``filters-eval``'s per-image MAE and wMAE, computed with the JAX
+    package's step on the CPU: on the 64 covers of ``p128_lsbr.npz`` for
+    each filter and ``inbayer``, and on the color4 case (``color_sets``)
+    for each filter and channel 0-2."""
+    jax = _cpu_jax()
+    import jax.numpy as jnp
+
+    from wsunet_tpu.data import load_images, precovers
+    from wsunet_tpu.ops import NAMED_FILTERS
+    from wsunet_tpu.ops.filters import taps_to_kernel2d
+    from wsunet_tpu.ws.filters_eval import _mae_wmae_batch
+
+    names = list(precovers(P128)["name"])
+    covers = load_images(P128, names)
+    color = color_sets()
+    arrays = {"names": np.array(names), "filters": np.array(FILTERS),
+              "inbayer": np.array([b or "none" for b in INBAYER])}
+    for f in FILTERS:
+        kernel = taps_to_kernel2d(NAMED_FILTERS[f])
+        for b in INBAYER:
+            step = _mae_wmae_batch(kernel, channel=3, inbayer=b)
+            res = [step(jnp.asarray(covers[i:i + 8]))
+                   for i in range(0, len(covers), 8)]
+            for j, key in enumerate(("mae", "wmae")):
+                arrays[f"{key}/{f}/{b or 'none'}"] = np.concatenate(
+                    [np.asarray(r[j]) for r in res]).astype(np.float32)
+        for c in range(3):
+            step = _mae_wmae_batch(kernel, channel=c)
+            res = [step(jnp.asarray(p)) for p in color]
+            for j, key in enumerate(("mae", "wmae")):
+                arrays[f"color/{key}/{f}/{c}"] = np.stack(
+                    [np.asarray(r[j]) for r in res]).astype(np.float32)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **arrays)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", action="append", type=pathlib.Path,
@@ -521,7 +891,11 @@ def main(argv=None) -> int:
                     golden_b0([REPO / r for r in DEFAULT_B0_RUNS],
                               args.out / "golden" / "p128_b0.npz"),
                     golden_train(REPO / DEFAULT_RUNS[0], args.out / "golden"
-                                 / "p128_train_step.npz")):
+                                 / "p128_train_step.npz"),
+                    golden_b0_train(REPO / DEFAULT_B0_RUNS[0], args.out /
+                                    "golden" / "p128_b0_train_step.npz"),
+                    golden_filters(args.out / "golden" /
+                                   "p128_filters.npz")):
             print(f"wrote {out}")
     return 0
 

@@ -47,7 +47,7 @@ def _exporter():
 
 @pytest.fixture(scope="module")
 def fresh(tmp_path_factory):
-    """A fresh export of the committed runs and the golden file."""
+    """A fresh export of the committed runs and the golden files."""
     out = tmp_path_factory.mktemp("weights")
     assert _exporter().main(["--out", str(out)]) == 0
     return out
@@ -176,6 +176,31 @@ def test_committed_b0_golden_equals_a_fresh_one(fresh):
         assert list(a["runs"]) == B0_RUNS
         assert (a["names"] == c["names"]).all()
         assert a["prob/ns-r-B0_mix0.1-0.05-0.01"].shape == (3, 64)
+
+
+def test_committed_b0_train_golden_equals_a_fresh_one(fresh):
+    committed = REPO / "weights" / "golden" / "p128_b0_train_step.npz"
+    with np.load(committed) as a, \
+            np.load(fresh / "golden" / "p128_b0_train_step.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a["pixels"].shape == (4, 2, 128, 128)
+        assert str(a["run"]) == B0_RUNS[0]
+        assert a["live/draws/keep"].shape == (4, 1280)
+        assert len(set(a["draws/0/alphas"].tolist())) == 2
+    assert committed.stat().st_size < 1 << 20
+
+
+def test_committed_filters_golden_equals_a_fresh_one(fresh):
+    committed = REPO / "weights" / "golden" / "p128_filters.npz"
+    with np.load(committed) as a, \
+            np.load(fresh / "golden" / "p128_filters.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a["mae/KB/none"].shape == (64,)
+        assert a["color/wmae/AVG/2"].shape == (2, 8)
 
 
 def _fake_run(root, method, name, loss, params=True, **extra):

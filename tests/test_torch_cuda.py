@@ -489,3 +489,98 @@ def test_train_names_on_card_writes_a_servable_run(cuda, tmp_path):
     model, _ = load_pretrained_unet(exp.parent, exp.name, device="cuda")
     beta, l1 = predict_batch(model, px[:4], device="cuda")
     assert bool(torch.isfinite(beta).all()) and bool(torch.isfinite(l1).all())
+
+
+GOLDEN_B0_TRAIN = REPO / "weights" / "golden" / "p128_b0_train_step.npz"
+
+
+def _golden_b0_step(device):
+    """The B0 golden step in the committed recipe (freeze_bn) on
+    ``device``, on JAX's draws: (loss, gradients in the Flax layout)."""
+    import json
+
+    from wsunet_tpu_torch.models import (b0_state_dict_from_flax,
+                                         flax_b0_params_from_state_dict)
+    from wsunet_tpu_torch.train import load_params
+    from wsunet_tpu_torch.train import train_b0
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree
+
+    z = np.load(GOLDEN_B0_TRAIN)
+    cfg = train_b0.B0TrainConfig.validate(json.loads(str(z["config"])))
+    model = train_b0.build_model(cfg)
+    model.load_state_dict(b0_state_dict_from_flax(*load_params(
+        REPO / "weights" / "b0" / "LSBR" / str(z["run"]))))
+    model.to(device).eval()
+    d = {k[len("draws/0/"):]: torch.from_numpy(z[k]).to(device)
+         for k in z.files if k.startswith("draws/0/")}
+    d = {k: v.long() if v.dtype == torch.int32 else v for k, v in d.items()}
+    sampler = train_b0.B0Sampler(model, cfg["stego_method"], cfg["alpha"],
+                                 crop=cfg["crop"], augment=cfg["augment"])
+    loss = sampler.loss(torch.from_numpy(z["pixels"][0]).to(device),
+                        torch.from_numpy(z["mask"][0]).to(device), d)[0]
+    loss.backward()
+    grads = flatten_tree(flax_b0_params_from_state_dict(
+        {k: p.grad for k, p in model.named_parameters()})[0])
+    return float(loss), grads, z
+
+
+@pytest.mark.cuda
+def test_golden_b0_train_step_on_card(cuda):
+    """The B0 step (committed recipe) on the card against JAX's golden
+    numbers and against the CPU port on the same draws: loss rel 1e-4,
+    gradients max|d|/max|g| 1e-3."""
+    loss, grads, z = _golden_b0_step(cuda)
+    assert abs(loss / float(z["loss"]) - 1) <= 1e-4
+    for k in z.files:
+        if k.startswith("grad/"):
+            want, got = z[k], grads[k[len("grad/"):]]
+            assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max(), k
+    cpu_loss, cpu_grads, _ = _golden_b0_step("cpu")
+    assert abs(loss / cpu_loss - 1) <= 1e-4
+    for k, want in cpu_grads.items():
+        assert np.abs(grads[k] - want).max() <= \
+            1e-3 * max(np.abs(want).max(), 1e-30), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inbayer", [None, "01"])
+def test_filters_eval_step_on_card_is_the_cpus(cuda, inbayer):
+    """filters-eval's step (KB and AVG) on the card and on the CPU on the
+    64 golden covers: MAE and wMAE rel 1e-5."""
+    from wsunet_tpu_torch.ops.filters import NAMED_FILTERS, taps_to_kernel2d
+    from wsunet_tpu_torch.ws import mae_wmae
+
+    x = torch.from_numpy(np.load(GOLDEN)["pixels"][0])
+    for name in ("KB", "AVG"):
+        k = taps_to_kernel2d(NAMED_FILTERS[name])
+        got = mae_wmae(x.to(cuda), k, inbayer=inbayer)
+        want = mae_wmae(x, k, inbayer=inbayer)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_train_b0_names_on_card_writes_a_loadable_run(cuda, tmp_path):
+    """Two epochs of two B0 steps on the card from .npy covers (batch
+    statistics and head dropout live); the run's best.npz loads and
+    scores a batch."""
+    from wsunet_tpu_torch.detect import infer_b0, load_pretrained_b0
+    from wsunet_tpu_torch.train.train_b0 import train_names
+
+    px = np.load(GOLDEN)["pixels"][0, :8]
+    (tmp_path / "images").mkdir()
+    names = []
+    for i, img in enumerate(px):
+        names.append(f"images/{i}.npy")
+        np.save(tmp_path / names[-1], img)
+    cfg = dict(crop=64, batch_size=2, steps_per_epoch=2, num_epochs=2,
+               val_steps=1, augment=True, alpha=[0.1, 0.05],
+               stem_init="highpass", parity_features=True,
+               quadratic_stem=True, compute_dtype="float32")
+    exp = train_names(cfg, tmp_path, names[:6], names[6:], tmp_path / "runs",
+                      device="cuda", reader=np.load)
+    assert exp.name.split("-")[1] == "cuda"
+    model, _ = load_pretrained_b0(exp.parent, exp.name, device="cuda")
+    p = infer_b0(model, px[:4], device="cuda")
+    assert p.shape == (4,) and bool(torch.isfinite(p).all())

@@ -99,3 +99,15 @@ def test_the_training_modules_are_covered():
                 "wsunet_tpu_torch.utils.run_names",
                 "wsunet_tpu_torch.utils.logging"):
         assert mod in MODULES
+
+
+def test_the_b0_training_and_filters_modules_are_covered():
+    """The B0 trainer's and filters-eval's modules are among those
+    imported and read above."""
+    for mod in ("wsunet_tpu_torch.train.train_b0",
+                "wsunet_tpu_torch.train.bn_recalibrate",
+                "wsunet_tpu_torch.ws.filters_eval",
+                "wsunet_tpu_torch.models.b0",
+                "wsunet_tpu_torch.models.convert",
+                "wsunet_tpu_torch.ops.filters"):
+        assert mod in MODULES

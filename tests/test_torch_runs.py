@@ -156,7 +156,7 @@ def test_cli_errors_are_one_line(cat, tmp_path, capsys):
                        "--model-dir", str(tmp_path), "--alphas", "0.1"]) == 0
     assert "skipping UNet l1/dropout" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        torch_main(["filters-eval"])   # not ported yet: argparse refuses
+        torch_main(["filters-eval"])   # no card (or no ./data): one line
     # roc --b0, OLS and colour planes are served since the B0 slice
     # (tests/test_torch_b0.py, tests/test_torch_ols.py); colour OLS on this
     # grayscale catalog has equal planes, so exactly singular equations

@@ -23,7 +23,19 @@ counterpart there (``tests/test_torch_*.py``).  The slices so far cover:
   checkpoints (``train.checkpoint``, ``utils.registry``,
   ``ws.unet_eval.load_pretrained_unet``), the ``-sca`` score
   (``ops.hill``, ``ops.ws.ws_attack_sca``) and the ROC tables
-  (``detect``, numpy only).
+  (``detect``, numpy only);
+- the B0 detector (``models.b0``, ``detect.b0_eval``, ``detector-eval``
+  and ``roc --b0``), OLS and colour planes (``ops.ols``), the bootstrap
+  intervals and the cross-fold holdout tables (``detect.ci``,
+  ``detect.holdout``);
+- the U-Net trainer (``train.train_unet``, ``train-unet``) with the LSBr
+  / HILLr simulators (``data.simulate``, ``simulate``);
+- the B0 trainer (``train.train_b0``, ``train-b0``: Flax's initialisers
+  and the high-pass stem, frozen or live batch statistics with Flax's
+  running update, head dropout on a given mask) and its batch-norm
+  recalibration (``train.bn_recalibrate``);
+- the filter prediction-error table (``ws.filters_eval``,
+  ``filters-eval``: MAE and HILL-decile wMAE per cover).
 
 Importing the package needs only torch and numpy: no JAX, no triton, no
 pandas/PIL/matplotlib (the CSV and plotting edges import them inside

@@ -1,17 +1,21 @@
 """Command-line interface (port of part of ``wsunet_tpu/cli.py``).
 
+    python -m wsunet_tpu_torch filters-eval   KB/AVG prediction error
+                                              (MAE, wMAE)
     python -m wsunet_tpu_torch ws-eval        WS attack sweep
     python -m wsunet_tpu_torch unet-eval      U-Net inference + WS error
     python -m wsunet_tpu_torch detector-eval  B0 detector scores
     python -m wsunet_tpu_torch roc            ROC/AUC/P_E over WS and B0
                                               detectors
     python -m wsunet_tpu_torch train-unet     train the U-Net predictor
+    python -m wsunet_tpu_torch train-b0       train the B0 detector
     python -m wsunet_tpu_torch simulate       generate stego fixtures
 
 The flags and defaults are the JAX CLI's, and the commands write the same
-files (``estimation/ws_sweep_<train>.csv``, ``estimation/ws_<method>.csv``,
-``detection/b0.csv``, ``detection/{auc,roc}_<alpha>.csv``,
-``roc_<alpha>.png``, a training run's directory, and
+files (``prediction/filters.csv``, ``estimation/ws_sweep_<train>.csv``,
+``estimation/ws_<method>.csv``, ``detection/b0.csv``,
+``detection/{auc,roc}_<alpha>.csv``, ``roc_<alpha>.png``, a training run's
+directory, and
 ``stego_<method>_alpha_<alpha>_independent_images/`` with its
 ``files.csv``), with these differences: the model directories default to
 the exported runs (``--model-dir`` / ``--unet-model-dir``
@@ -23,8 +27,9 @@ predictor on the covers, in the colour layouts for two or three
 ``--channels``.  ``simulate --method LSBr`` draws from torch generators
 seeded per image as the JAX CLI seeds its keys, so its stego pixels are
 not the JAX CLI's (HILLr's are).  pandas, PIL and matplotlib are imported
-by the commands; the other subcommands of the JAX CLI (``filters-eval``,
-``train-b0``, the analyses, ...) do not exist yet.
+by the commands; the other subcommands of the JAX CLI (the analyses,
+``init-dataset``, ``bench``, ``serve``) do not exist yet.  The B0
+recalibration is ``python -m wsunet_tpu_torch.train.bn_recalibrate``.
 """
 
 import argparse
@@ -61,6 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="wsunet_tpu_torch",
         description="WS steganalysis on PyTorch / CUDA")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("filters-eval",
+                       help="KB/AVG prediction error (MAE/wMAE)")
+    _common(p)
+    p.add_argument("--filters", nargs="+", default=["AVG", "KB"])
+    p.add_argument("--channels", nargs="+", type=int, default=None,
+                   help="[R,G,B,Y] plane per filter (default: Y for each)")
+    p.add_argument("--inbayer", default=None, choices=["00", "01", "10", "11"],
+                   help="Bayer-phase subsample of the residual grid")
 
     p = sub.add_parser("ws-eval", help="WS attack sweep")
     _common(p)
@@ -114,6 +128,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=json.loads, default={},
                    help='JSON config overrides, e.g. \'{"alpha":0.4}\'')
 
+    p = sub.add_parser("train-b0", help="train the B0 detector")
+    _common(p)
+    p.add_argument("--output-dir", type=pathlib.Path,
+                   default=pathlib.Path("models/b0"))
+    p.add_argument("--config", type=json.loads, default={},
+                   help='JSON config overrides, e.g. \'{"alpha":0.01}\'')
+
     p = sub.add_parser("simulate", help="generate stego fixture directories")
     _common(p)
     p.add_argument("--method", choices=["LSBr", "HILLr"], default="LSBr")
@@ -143,9 +164,22 @@ def _dispatch(args):
     cmd = args.command
     # commands that do not walk the catalog refuse a row selection instead
     # of ignoring it
-    if (args.split or args.take) and cmd in ("train-unet", "simulate"):
+    if (args.split or args.take) and cmd in ("train-unet", "train-b0",
+                                             "simulate"):
         raise SystemExit(f"{cmd} does not support --split/--take")
-    if cmd == "ws-eval":
+    if cmd == "filters-eval":
+        from .ws import filters_run
+        channels = ([(c,) for c in args.channels] if args.channels
+                    else [(3,)] * len(args.filters))
+        res = filters_run(args.data, filter_names=args.filters,
+                          channels=channels, inbayer=args.inbayer,
+                          batch_size=args.batch_size, split=args.split,
+                          take_num_images=args.take, device=args.device)
+        out = args.results / "prediction" / "filters.csv"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res.to_csv(out, index=False)
+        print(f"output saved to {out}")
+    elif cmd == "ws-eval":
         res = _ws_sweep(args)
         out = args.results / "estimation" / f"ws_sweep_{args.train_method}.csv"
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -176,6 +210,11 @@ def _dispatch(args):
         _cmd_roc(args)
     elif cmd == "train-unet":
         from .train.train_unet import train
+        exp = train(args.config, data_path=args.data,
+                    output_dir=args.output_dir, device=args.device)
+        print(f"experiment saved to {exp}")
+    elif cmd == "train-b0":
+        from .train.train_b0 import train
         exp = train(args.config, data_path=args.data,
                     output_dir=args.output_dir, device=args.device)
         print(f"experiment saved to {exp}")

@@ -3,8 +3,9 @@ the trainer (port of part of ``wsunet_tpu/detect/metrics.py``), in numpy
 alone.
 
 The trainer's meters (``AverageMeter``, ``LossMeter``, ``MAEMeter``,
-``WSMeter``, ``ProgressMeter``) take numpy arrays or host numbers;
-``WSMeter`` takes the port's NCHW batches and crops 1 px of H and W.
+``WSMeter``, ``ProgressMeter``, and the B0 trainer's ``AccuracyMeter``)
+take numpy arrays or host numbers; ``WSMeter`` takes the port's NCHW
+batches and crops 1 px of H and W.
 
 The JAX package computes them with scikit-learn, which the card's machine
 does not have.  ``roc_curve`` and ``auc`` here return what
@@ -197,6 +198,22 @@ class PerformanceMeter:
     @property
     def avg(self):
         raise NotImplementedError
+
+    def __str__(self):
+        return f"{self.name}: {self.avg:4.3f}"
+
+    def to_dict(self):
+        return {self.name: self.avg}
+
+
+class AccuracyMeter(PerformanceMeter):
+    """Share of predicted labels equal to the true ones."""
+
+    name = "accuracy"
+
+    @property
+    def avg(self):
+        return np.mean(self.y_pred == self.y_true)
 
 
 class PEMeter(PerformanceMeter):

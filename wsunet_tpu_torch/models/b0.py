@@ -11,8 +11,11 @@ the JAX package's:
 - ``parity_features``: ``cos(pi * x255)`` of the first input plane
   appended as an input channel, computed in f32 before any cast, where
   x255 undoes the ImageNet green normalisation of ``detect.b0_eval``;
-- ``norm``: ``"batch"`` (running statistics, eps 1e-3; Flax momentum 0.9
-  is torch momentum 0.1) or ``"group"`` (groups of 8 channels, eps 1e-3).
+- ``norm``: ``"batch"`` (``FlaxBatchNorm``: running statistics, eps 1e-3,
+  updated in training mode as Flax's ``BatchNorm(momentum=0.9)`` updates
+  them) or ``"group"`` (groups of 8 channels, eps 1e-3);
+- ``stem_init``: ``"highpass"`` seeds the stem with the steganalysis
+  extractors of the JAX ``_highpass_stem_init`` (``init_b0``).
 
 Flax's ``padding="SAME"`` at stride 2 pads as TensorFlow does, by the
 input size: on an even size k=3 pads 0 before and 1 after, k=5 1 and 2;
@@ -26,17 +29,35 @@ convolutions and activations run in, the norms compute in f32, and the
 classifier runs in f32 as in JAX.  Submodules carry the Flax names
 (``conv_stem``, ``bn_stem``, ``stage<s>_block<b>.dw_conv``, ``se.reduce``,
 ``classifier``, ...), so ``convert.b0_state_dict_from_flax`` maps a Flax
-checkpoint one to one.  The weights always come from a checkpoint here:
-the high-pass stem initialiser belongs to training (not ported yet).
+checkpoint one to one and ``convert.flax_b0_params_from_state_dict`` maps
+it back.
+
+For training (``train.train_b0``):
+
+- ``init_b0`` fills a model as Flax's default initialisers do (every conv
+  kernel and the classifier's kernel LeCun-normal with the fan-in of the
+  Flax HWIO / [in, out] shape, zero biases, unit norm scales, running
+  mean 0 and variance 1), and with ``stem_init="highpass"`` overwrites the
+  stem's first 16 output channels with the JAX package's fixed
+  extractors, bit for bit;
+- ``FlaxBatchNorm`` normalises with the biased batch variance in training
+  mode, as ``nn.BatchNorm2d`` does, but also moves its running variance
+  towards the biased one (``nn.BatchNorm2d`` takes the unbiased variance
+  there, n / (n - 1) times larger);
+- the head dropout (``HeadDropout``) takes its keep mask [B, 1280] from
+  the caller in training mode, so a step can replay Flax's mask (the
+  trainer's ``B0Sampler.draw`` draws it).
 """
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .._device import disable_tf32
+from .initializers import lecun_normal
 
 # (expand_ratio, channels, repeats, stride, kernel)
 B0_STAGES = [
@@ -90,12 +111,58 @@ class _GroupNorm(nn.GroupNorm):
         return super().forward(x.float()).to(x.dtype)
 
 
+class FlaxBatchNorm(nn.BatchNorm2d):
+    """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-3)`` over NCHW.
+
+    Eval mode normalises with the running statistics (``nn.BatchNorm2d``'s
+    own forward).  Training mode computes the statistics in f32 as Flax
+    does (mean and mean of squares, var = max(0, E[x^2] - E[x]^2), the
+    biased variance), normalises with them, and moves the running
+    statistics: ``r = 0.9 * r + 0.1 * batch``, the variance biased too."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-3, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+            self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + \
+            self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 def _make_norm(kind: str, channels: int) -> nn.Module:
     if kind == "group":
         return _GroupNorm(channels // 8, channels, eps=1e-3)
-    # any other kind is batch norm, as in JAX; in eval mode only the
-    # running statistics matter
-    return nn.BatchNorm2d(channels, eps=1e-3, momentum=0.1)
+    # any other kind is batch norm, as in JAX
+    return FlaxBatchNorm(channels)
+
+
+class HeadDropout(nn.Module):
+    """Flax's ``nn.Dropout(rate)`` on the pooled features: in training
+    mode the kept features are scaled by 1 / (1 - rate) and the others
+    zeroed.  There the keep mask (bool, x's shape) is required, so a
+    training step can replay Flax's."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, keep: torch.Tensor = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if keep is None:
+            raise ValueError("HeadDropout in training mode needs its keep "
+                             "mask")
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class _SqueezeExcite(nn.Module):
@@ -145,10 +212,11 @@ class EfficientNetB0(nn.Module):
 
     def __init__(self, num_classes: int = 2, in_channels: int = 1,
                  no_stem_stride: bool = False, drop_rate: float = 0.2,
-                 quadratic_stem: bool = False,
+                 stem_init: str = "default", quadratic_stem: bool = False,
                  parity_features: bool = False, norm: str = "batch",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.stem_init = stem_init
         self.quadratic_stem = quadratic_stem
         self.parity_features = parity_features
         self.compute_dtype = compute_dtype
@@ -164,10 +232,12 @@ class EfficientNetB0(nn.Module):
                 width = c
         self.conv_head = _Conv(width, HEAD_WIDTH, 1)
         self.bn_head = _make_norm(norm, HEAD_WIDTH)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = HeadDropout(drop_rate)
         self.classifier = nn.Linear(HEAD_WIDTH, num_classes)
 
-    def forward(self, x):
+    def forward(self, x, keep: torch.Tensor = None):
+        """``keep``: the head dropout's mask [B, 1280], required in
+        training mode when ``drop_rate`` is not 0."""
         if x.is_cuda and self.compute_dtype == torch.float32:
             disable_tf32()
         if self.parity_features:
@@ -185,19 +255,90 @@ class EfficientNetB0(nn.Module):
             if name.startswith("stage"):
                 h = block(h)
         h = F.silu(self.bn_head(self.conv_head(h)))
-        h = self.dropout(h.mean(dim=(2, 3)))
-        return self.classifier(h.float())
+        h = self.dropout(h.mean(dim=(2, 3)), keep=keep)
+        # in the parameters' dtype: f32 as in JAX (f64 for a model moved
+        # to float64 as a reference)
+        return self.classifier(h.to(self.classifier.weight.dtype))
+
+
+# steganalysis high-pass kernels (the JAX package's _HP_KERNELS): KB
+# residual, 2nd differences, diagonals, laplacian-like
+HP_KERNELS = [
+    [[-1, 2, -1], [2, -4, 2], [-1, 2, -1]],
+    [[0, 0, 0], [1, -2, 1], [0, 0, 0]],
+    [[0, 1, 0], [0, -2, 0], [0, 1, 0]],
+    [[1, 0, 0], [0, -2, 0], [0, 0, 1]],
+    [[0, 0, 1], [0, -2, 0], [1, 0, 0]],
+    [[1, 1, 1], [1, -8, 1], [1, 1, 1]],
+    [[0, -1, 0], [-1, 4, -1], [0, -1, 0]],
+    [[-1, -1, -1], [2, 2, 2], [-1, -1, -1]],
+]
+
+
+def highpass_stem(base: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_highpass_stem_init`` on an OIHW stem kernel ``base`` (its
+    LeCun-normal draw): a 3x3 kernel keeps ``base`` in output channels 16
+    and up; outputs 0-7 become the LSB-plane extractor (+8 times the
+    centre tap on input 0, -8 times it on input 1) when the kernel has at
+    least two input planes (parity or LSBr-reference plane included), and
+    the high-pass bank / 4 on input 0 otherwise; outputs 8-15 the bank / 4
+    on input 0.  Every other input plane of outputs 0-15 is 0."""
+    cout, cin, kh, kw = base.shape
+    if (kh, kw) != (3, 3):
+        return base
+    kernels = [np.asarray(k, np.float32) / 4.0 for k in HP_KERNELS]
+    center = np.zeros((3, 3), np.float32)
+    center[1, 1] = 1.0
+    fixed = np.zeros((cout, cin, 3, 3), np.float32)
+    n_seed = min(2 * QUAD_PAIRS, cout)
+    for o in range(n_seed):
+        if o < QUAD_PAIRS:
+            if cin >= 2:
+                fixed[o, 0] = center * 8.0
+                fixed[o, 1] = -center * 8.0
+            else:
+                fixed[o, 0] = kernels[o % len(kernels)]
+        else:
+            fixed[o, 0] = kernels[(o - QUAD_PAIRS) % len(kernels)]
+    out = base.clone()
+    out[:n_seed] = torch.from_numpy(fixed[:n_seed]).to(base.dtype)
+    return out
+
+
+@torch.no_grad()
+def init_b0(model: EfficientNetB0, seed: int) -> EfficientNetB0:
+    """Fill ``model`` from a seeded CPU generator with Flax's defaults:
+    conv kernels LeCun-normal with fan-in k*k*(C_in / groups) (k*k for
+    the depthwise convs), the classifier's kernel with fan-in 1280, zero
+    biases, norm scales 1 and biases 0, running mean 0 and variance 1.
+    The model's ``stem_init`` (``get_b0``'s switch) ``"highpass"`` then
+    seeds the stem (``highpass_stem``).  The draws are torch's, not
+    ``jax.random``'s: the distribution is JAX's, the values are not (the
+    high-pass channels are)."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            fan_in = mod.weight[0].numel()
+            mod.weight.copy_(lecun_normal(mod.weight.shape, fan_in, gen))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
+            mod.reset_parameters()
+    if model.stem_init == "highpass":
+        model.conv_stem.weight.copy_(highpass_stem(model.conv_stem.weight))
+    return model
 
 
 def get_b0(in_channels: int, num_classes: int = 2,
            no_stem_stride: bool = False, drop_rate: float = 0.2,
-           quadratic_stem: bool = False, parity_features: bool = False,
-           norm: str = "batch",
+           stem_init: str = "default", quadratic_stem: bool = False,
+           parity_features: bool = False, norm: str = "batch",
            compute_dtype: torch.dtype = torch.float32) -> EfficientNetB0:
-    """Factory with the JAX ``get_b0``'s switches (``stem_init`` is a
-    training option and is not taken)."""
+    """Factory with the JAX ``get_b0``'s switches (``stem_init`` takes
+    effect in ``init_b0``)."""
     return EfficientNetB0(
         num_classes=num_classes, in_channels=in_channels,
         no_stem_stride=no_stem_stride, drop_rate=drop_rate,
-        quadratic_stem=quadratic_stem, parity_features=parity_features,
-        norm=norm, compute_dtype=compute_dtype)
+        stem_init=stem_init, quadratic_stem=quadratic_stem,
+        parity_features=parity_features, norm=norm,
+        compute_dtype=compute_dtype)

@@ -22,7 +22,9 @@ taps flipped back, so a run the port trained is written in the layout of
 ``ws.unet_eval.load_pretrained_unet`` read, and the JAX package's Flax
 model takes.
 
-B0 (``b0_state_dict_from_flax``): see its docstring.
+B0 (``b0_state_dict_from_flax``): see its docstring;
+``flax_b0_params_from_state_dict`` is its inverse, giving the params and
+``batch_stats`` trees that a B0 run's ``best.npz`` holds.
 """
 
 import numpy as np
@@ -129,3 +131,35 @@ def b0_state_dict_from_flax(params: dict, batch_stats: dict = None) -> dict:
     walk(params, [], False)
     walk(batch_stats or {}, [], True)
     return sd
+
+
+def flax_b0_params_from_state_dict(state_dict: dict) -> tuple:
+    """Map a ``models.b0.EfficientNetB0`` ``state_dict`` to the Flax
+    ``EfficientNetB0`` variables, (params, batch_stats), nested dicts of
+    f32 numpy arrays: the inverse of ``b0_state_dict_from_flax``.  A 4-D
+    ``weight`` is a conv kernel (OIHW -> HWIO), a 2-D one the classifier's
+    (transposed), a 1-D one a norm scale; ``running_mean`` /
+    ``running_var`` go to ``batch_stats`` as ``mean`` / ``var``, and
+    ``num_batches_tracked`` is dropped.  ``batch_stats`` is empty for a
+    group-norm model."""
+    params, stats = {}, {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        tree = params
+        if leaf in ("running_mean", "running_var"):
+            tree, name, arr = stats, leaf[len("running_"):], _np(value)
+        elif leaf == "bias":
+            name, arr = "bias", _np(value)
+        elif value.ndim == 4:
+            name, arr = "kernel", _hwio(value)
+        elif value.ndim == 2:
+            name, arr = "kernel", np.ascontiguousarray(_np(value).T)
+        else:
+            name, arr = "scale", _np(value)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = arr
+    return params, stats

@@ -39,8 +39,6 @@ kernel LeCun-normal (a normal cut at +-2 sigma, rescaled so that its
 standard deviation is 1/sqrt(fan_in)), every bias zero.
 """
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -49,6 +47,7 @@ from torch import nn
 from .._device import disable_tf32
 from ..ops.fused_reflect_conv import conv3x3_reflect_fused
 from ..ops.reflect_conv import conv3x3_reflect_borderfix
+from .initializers import lecun_normal
 
 WIDTHS = [64, 128, 256, 512, 1024]
 FAST_CONV = (False, "borderfix", True)
@@ -56,9 +55,6 @@ _KB = np.array(
     [[-1, 2, -1],
      [2, 0, 2],
      [-1, 2, -1]], dtype="float32") / 4.0
-# the standard deviation of a standard normal cut at +-2, as Flax's
-# truncated-normal initialisers divide by it
-_TRUNC_STD = 0.87962566103423978
 
 
 def kb_predict(x: torch.Tensor) -> torch.Tensor:
@@ -215,9 +211,7 @@ def init_unet(model: UNet, seed: int) -> UNet:
             fan_in = p.shape[0] * p.shape[2] * p.shape[3]
         else:
             fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-        t = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, 1.0, -2.0, 2.0,
-                                  generator=gen)
-        p.copy_(t * (1.0 / math.sqrt(fan_in) / _TRUNC_STD))
+        p.copy_(lecun_normal(p.shape, fan_in, gen))
     return model
 
 

@@ -1,5 +1,6 @@
 from .filters import (NAMED_FILTERS, NAMED_FILTERS_2D, conv2d_valid,
-                      filter_predict, taps_to_kernel2d)
+                      filter_predict, filter_residuals, get_coefficients,
+                      taps_to_kernel2d)
 from .fused_reflect_conv import (conv3x3_reflect_fused,
                                  conv3x3_reflect_fused_plain)
 from .fused_ws import ws_attack_fused, ws_attack_fused_plain
@@ -16,6 +17,8 @@ __all__ = [
     "conv3x3_reflect_fused",
     "conv3x3_reflect_fused_plain",
     "filter_predict",
+    "filter_residuals",
+    "get_coefficients",
     "hill_cost",
     "taps_to_kernel2d",
     "ws_attack_fused",

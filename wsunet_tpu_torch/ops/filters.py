@@ -6,6 +6,9 @@
   kernel (``F.conv2d`` is a correlation, like XLA's conv).
 - ``filter_predict``: the reference's ``convolve(x/255, k, 'valid')*255``,
   a true convolution, so the kernel is flipped before the correlation.
+- ``filter_residuals``: the residual ``centre - prediction`` on raw
+  pixels, one valid correlation with (delta_centre - taps).
+- ``get_coefficients``: a named filter as its tap vector or 3x3 kernel.
 
 All functions take [B, H, W] or [H, W] float32 tensors and run on the
 tensor's device; on CUDA the f32 convolution runs with TF32 off.
@@ -49,6 +52,12 @@ NAMED_FILTERS = {
 }
 
 
+def get_coefficients(filter_name: str, flatten: bool = True) -> np.ndarray:
+    """A named filter's tap vector (``flatten``) or its 3x3 kernel."""
+    return NAMED_FILTERS[filter_name] if flatten \
+        else NAMED_FILTERS_2D[filter_name]
+
+
 def taps_to_kernel2d(taps: np.ndarray, center: float = 0.0) -> np.ndarray:
     """Convert a 9-tap (8 neighbors [+ optional center]) vector into a 3x3
     kernel in spatial orientation."""
@@ -81,3 +90,13 @@ def filter_predict(x: torch.Tensor, kernel) -> torch.Tensor:
     [B, H-2, W-2]."""
     k_flipped = np.asarray(kernel, dtype="float32")[::-1, ::-1]
     return conv2d_valid(x / 255.0, k_flipped) * 255.0
+
+
+def filter_residuals(x: torch.Tensor, kernel2d) -> torch.Tensor:
+    """Residual ``centre - prediction`` of every interior pixel on raw
+    pixel values, [B, H, W] -> [B, H-2, W-2] in f32: one valid correlation
+    with the kernel (delta_centre - taps), as the JAX package fuses the
+    reference's N x 9 product."""
+    k = -np.asarray(kernel2d, dtype="float32")
+    k[1, 1] += 1.0
+    return conv2d_valid(x.to(torch.float32), k)

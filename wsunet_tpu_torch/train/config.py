@@ -70,8 +70,8 @@ class UNetTrainConfig:
 
 @dataclasses.dataclass
 class B0TrainConfig:
-    """EfficientNet-B0 detector training (the JAX package's
-    ``train.train_b0``; not ported yet)."""
+    """EfficientNet-B0 detector training
+    (wsunet_tpu_torch.train.train_b0)."""
 
     network: str = "b0"
     crop: typing.Optional[int] = None

@@ -34,7 +34,6 @@ installed.
 import dataclasses
 import math
 import pathlib
-import time
 import typing
 
 import numpy as np
@@ -48,9 +47,11 @@ from ..detect.metrics import LossMeter, MAEMeter, ProgressMeter, WSMeter
 from ..io.imread import imread_gray_u8
 from ..models import (flax_params_from_unet_state_dict, get_model, init_unet,
                       unet_state_dict_from_flax)
-from ..utils import create_run_name, setup_logger
+from ..utils import setup_logger
 from .checkpoint import (PARAMS_FILE, load_checkpoint, load_params,
                          save_checkpoint, save_config, save_params)
+from .common import (MetricWriter, epoch_names, experiment_dir,
+                     repeat_names, val_generator)
 from .config import UNetTrainConfig
 from .losses import get_loss
 
@@ -235,61 +236,6 @@ def make_optimizer(cfg: dict, steps_per_epoch: int, params):
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
 
 
-class MetricWriter:
-    """CSV scalars always, TensorBoard's as well when torch's writer
-    imports (the JAX trainer's rule)."""
-
-    def __init__(self, log_dir: pathlib.Path):
-        self.log_dir = pathlib.Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self._csv = open(self.log_dir / "scalars.csv", "a")
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-            self._tb = SummaryWriter(log_dir=str(self.log_dir))
-        except Exception:
-            self._tb = None
-
-    def add_scalar(self, tag, value, global_step):
-        self._csv.write(f"{global_step},{tag},{value}\n")
-        self._csv.flush()
-        if self._tb is not None:
-            self._tb.add_scalar(tag, value, global_step=global_step)
-
-    def close(self):
-        self._csv.close()
-        if self._tb is not None:
-            self._tb.close()
-
-
-def epoch_names(names: list, rng: np.random.Generator,
-                steps_per_epoch: int = None, batch_size: int = 1) -> list:
-    """One epoch's image order: the JAX trainer's ``df.sample(frac=1,
-    random_state=rng.integers(2**31))`` (which is
-    ``RandomState(s).permutation(n)``), repeated to ``steps_per_epoch *
-    batch_size`` names when that is set."""
-    names = list(names)
-    if len(names) > 1:
-        order = np.random.RandomState(rng.integers(2 ** 31)).permutation(
-            len(names))
-        names = [names[i] for i in order]
-    return _repeat(names, steps_per_epoch, batch_size)
-
-
-def _repeat(names: list, steps: int, batch_size: int) -> list:
-    if not steps:
-        return names
-    need = steps * batch_size
-    reps = max(1, -(-need // len(names)))
-    return (names * reps)[:need]
-
-
-def val_generator(seed: int, batch_index: int, device) -> torch.Generator:
-    """The fixed generator of validation batch ``batch_index`` (the JAX
-    trainer's ``fold_in(PRNGKey(seed), vb)``)."""
-    state = np.random.SeedSequence([seed, batch_index]).generate_state(1)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
-
-
 def _resume(model, resume_dir: pathlib.Path):
     """Load the parameters of ``resume_dir``'s ``model/best`` (a run the
     port trained) or, without one, of its ``best.npz`` (a JAX run
@@ -304,19 +250,6 @@ def _resume(model, resume_dir: pathlib.Path):
     model.load_state_dict(state)
 
 
-def _experiment_dir(output_dir, method: str, platform: str,
-                    cfg: dict) -> pathlib.Path:
-    """``<output_dir>/<method>/<%y%m%d%H%M%S>-<platform>-<run name>``;
-    a second run started in the same second waits for the next stamp."""
-    while True:
-        run_name = (time.strftime("%y%m%d%H%M%S") + f"-{platform}-"
-                    + create_run_name(cfg))
-        exp_dir = pathlib.Path(output_dir) / method / run_name
-        if not exp_dir.exists():
-            return exp_dir
-        time.sleep(0.25)
-
-
 def train_names(config: dict, data_path: pathlib.Path,
                 tr_names: typing.Sequence[str],
                 va_names: typing.Sequence[str], output_dir: pathlib.Path,
@@ -328,8 +261,8 @@ def train_names(config: dict, data_path: pathlib.Path,
     dev = resolve_device(device)
     cfg = UNetTrainConfig.validate(config)
     stego_method = cfg["stego_method"]
-    exp_dir = _experiment_dir(output_dir, stego_method or "dropout",
-                              dev.type, cfg)
+    exp_dir = experiment_dir(output_dir, stego_method or "dropout",
+                             dev.type, cfg)
     # registry label: cover-only (dropout-regularised) runs are registered
     # under "dropout"
     save_config(exp_dir, {**cfg, "dataset": str(data_path),
@@ -363,7 +296,7 @@ def train_names(config: dict, data_path: pathlib.Path,
     seed = cfg["seed"] or 0
     generator = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(cfg["seed"])
-    va_ep = _repeat(list(va_names), cfg.get("val_steps"), batch_size)
+    va_ep = repeat_names(list(va_names), cfg.get("val_steps"), batch_size)
 
     def batches(names):
         for batch in iterate_batches(data_path, names, batch_size,
