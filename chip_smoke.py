@@ -120,6 +120,29 @@ kernel against its plain PyTorch version:
    covers against ``weights/golden/p128_filters.npz`` (every ``inbayer``,
    and the color4 planes), and timed at 512x512, B=128 (33 million cost
    values, beyond ``torch.quantile``'s 2^24), KB on the luminance plane.
+13. the analyses and the serving CLI's loops, on the trained runs of
+   ``weights/unet`` found by name, with every B1 launch held against B1's
+   plain version on the same activations (phase 5's bounds) and B2 not
+   launched: (a) on the 64 p128 covers and their LSBr stego at alpha 0.1
+   as ``.npy`` files, on both ``fast_conv`` routes, against
+   ``weights/golden/p128_analyses.npz`` (the JAX package's numbers):
+   ``correlation``'s rows for 4 filters and 3 U-Nets
+   (``analyses.correlation.correlation_rows``), ``error-boxes``'
+   statistics (``residual_populations``, ``box_stats``), ``contour``'s
+   difference images, ``saliency``'s patches at four points and
+   ``sobel_locations``; (b) at full width, ``unet_2`` at 512x512: the
+   saliency gradient at the subcommand's four points on B1 against
+   cuDNN, ``serve``'s loops in bf16 with ``--fast-conv``
+   (``serve.load_server``; ``stream_paths`` over 32 ``.npy`` paths,
+   ``serve_lines`` over 8 lines, one of the wrong shape) against
+   ``UNetWSServer.predict`` with 9 ``wgmma`` + 1 ``direct`` launches a
+   request, and the correlation core over 64 seeded pairs on each route;
+   then, without the per-launch check, ms a saliency point, the streamed
+   img/s and ``measure_latency`` of ``serve`` on each route, and the
+   correlation core's pairs/s; (c) the hooks: ``utils.profiling.profile``
+   (``WSUNET_PROFILE``) around one saliency call writes a trace naming
+   B1's kernels, and ``nan_check`` raises ``FloatingPointError`` at a NaN
+   made by a torch op on the card and at B1's output.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -129,6 +152,7 @@ prints no result.
 
 import copy
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -437,23 +461,12 @@ def detection_path(smi_line: str) -> dict:
     # version in f32 on the same activations, at phase 5's bounds
     b1_calls = []
     launch = fused_reflect_conv._launch
-
-    def checked_launch(x, w, b, relu):
-        out = launch(x, w, b, relu)
-        want = fused_reflect_conv.conv3x3_reflect_fused_plain(
-            x.float(), w.float(), b.float(), relu)
-        err, ok = b1_err(out, want)
-        b1_calls.append((x.dtype, err))
-        check(ok, f"B1 on the trained unet_2, {str(x.dtype)[6:]} "
-                  f"{tuple(x.shape)}->{w.shape[3]}: max |err| {err}")
-        return out
-
     root = REPO / "build" / "smoke_p128"
     shutil.rmtree(root, ignore_errors=True)
     names = [f"images/{i:02d}.npy" for i in range(n_img)]
     bad = 2
     keep = np.arange(n_img) != bad
-    fused_reflect_conv._launch = checked_launch
+    fused_reflect_conv._launch = checking_b1(b1_calls, "the trained unet_2")
     try:
         # 2. the card against JAX: f32 U-Net on both routes
         beta, l1 = {}, {}
@@ -1589,12 +1602,324 @@ def b0_training_path(smi_line: str) -> dict:
     return out
 
 
+GOLDEN_ANALYSES = REPO / "weights" / "golden" / "p128_analyses.npz"
+# correlation against JAX's (tests/test_torch_analyses.py): rtol 1e-5
+# (filters) or 1e-4 (U-Nets), and atol 1e-7, the statistic's own f32
+# rounding: at alpha 0.1 some pairs' correlation is 5e-8 (the reference's
+# x_hat.std() normaliser), where the CPU differs from JAX by 1.4e-8
+CORR_ATOL = 1e-7
+# a trained U-Net's prediction against JAX's, per pixel (0..255): 1e-6 of
+# its 0..1 sigmoid output, times 255 (tests/test_torch_analyses.py)
+UNET_PIXEL_ATOL = 2.55e-4
+# the saliency subcommand's default points, at 512x512
+SALIENCY_POINTS = [(307, 10), (261, 64), (155, 381), (9, 25)]
+
+
+def checking_b1(calls: list, where: str):
+    """A stand-in for ``fused_reflect_conv._launch`` that holds every
+    launch against B1's plain version in f32 on the same activations, at
+    phase 5's bounds, and records (dtype, max |err|) in ``calls``."""
+    from wsunet_tpu_torch.ops import fused_reflect_conv
+
+    launch = fused_reflect_conv._launch
+
+    def checked_launch(x, w, b, relu):
+        out = launch(x, w, b, relu)
+        want = fused_reflect_conv.conv3x3_reflect_fused_plain(
+            x.float(), w.float(), b.float(), relu)
+        err, ok = b1_err(out, want)
+        calls.append((x.dtype, err))
+        check(ok, f"B1 on {where}, {str(x.dtype)[6:]} "
+                  f"{tuple(x.shape)}->{w.shape[3]}: max |err| {err}")
+        return out
+    return checked_launch
+
+
+def write_npy(root: pathlib.Path, folder: str, images) -> list:
+    """``images`` as ``<folder>/<i>.npy`` under ``root``; their names."""
+    (root / folder).mkdir(parents=True, exist_ok=True)
+    names = [f"{folder}/{i:02d}.npy" for i in range(len(images))]
+    for name, img in zip(names, images):
+        np.save(root / name, img)
+    return names
+
+
+def analyses_path(smi_line: str) -> dict:
+    """Phase 13: the analyses and the serving CLI's loops; (a) against the
+    JAX package's numbers, (b) at full width, (c) the hooks."""
+    from wsunet_tpu_torch.analyses.contour import difference_image
+    from wsunet_tpu_torch.analyses.correlation import (correlation_rows,
+                                                       unet_runs)
+    from wsunet_tpu_torch.analyses.error_boxes import (box_stats,
+                                                       residual_populations)
+    from wsunet_tpu_torch.analyses.saliency import (saliency_patch,
+                                                    saliency_patches,
+                                                    sobel_locations)
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.serve import (load_server, measure_latency,
+                                        serve_lines, stream_paths)
+    from wsunet_tpu_torch.utils import profiling
+    from wsunet_tpu_torch.ws import load_pretrained_unet
+
+    gold = np.load(GOLDEN_ANALYSES)
+    lsbr = np.load(GOLDEN)
+    unet_dir = REPO / "weights" / "unet"
+    root = REPO / "build" / "smoke_analyses"
+    shutil.rmtree(root, ignore_errors=True)
+    s = list(lsbr["sets"]).index(str(float(gold["alpha"])))
+    names_c = write_npy(root, "images", lsbr["pixels"][0])
+    names_s = write_npy(root, "stego", lsbr["pixels"][s])
+    names = [str(n) for n in gold["names"]]
+    unets = unet_runs(unet_dir, ["dropout", "LSBR", "HILLR"])
+    check([run.name for _, run in unets] ==
+          [str(r) for r in gold["unet_runs"]], f"U-Net runs {unets}")
+    labels = [str(m) for m in gold["correlation_models"]]
+    n_pairs = len(names_c)
+
+    b1_calls = []
+    launch = fused_reflect_conv._launch
+    fused_reflect_conv._launch = checking_b1(b1_calls, "the analyses path")
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    worst = {}
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), float(err))
+
+    try:
+        # (a) against JAX on the card, both conv routes
+        for fc in (False, True):
+            before = fused_reflect_conv.launches
+            rows = correlation_rows(root, names_c, names_s, unets=unets,
+                                    fast_conv=fc, reader=np.load)
+            check([r["model_name"] for r in rows[::n_pairs]] == labels,
+                  f"correlation labels {rows[::n_pairs]}")
+            for k, label in enumerate(labels):
+                part = rows[n_pairs * k:n_pairs * (k + 1)]
+                cor = np.array([r["correlation"] for r in part])
+                pv = np.array([r["p-value"] for r in part])
+                want_c = gold[f"correlation/{label}"]
+                want_p = gold[f"p-value/{label}"]
+                rtol = 1e-4 if label.startswith("UNet") else 1e-5
+                d_cor = np.abs(cor - want_c)
+                nz = want_p > 0
+                lrel = float(np.max(np.abs(np.log(pv[nz]) -
+                                           np.log(want_p[nz])) /
+                                    np.abs(np.log(want_p[nz])))) \
+                    if nz.any() else 0.0
+                kind = "unet" if label.startswith("UNet") else "filter"
+                note(f"correlation |d|, {kind}", d_cor.max())
+                note("log p rel", lrel)
+                check(np.all(d_cor <= rtol * np.abs(want_c) + CORR_ATOL) and
+                      lrel <= 1e-3 and ((pv == 0) == (want_p == 0)).all(),
+                      f"correlation {label} fast_conv={fc}: max |d| "
+                      f"{d_cor.max()}, log p rel {lrel}")
+            check(fused_reflect_conv.launches - before ==
+                  (len(unets) * (n_pairs // 8) * 10 if fc else 0),
+                  f"correlation fast_conv={fc}: B1 launches")
+            pops = residual_populations(
+                root, names_c, unets=[("UNet_l1", unets[0][1]),
+                                      ("UNet_l1ws", unets[1][1])],
+                fast_conv=fc, reader=np.load)
+            table = box_stats(pops, "KB")
+            check([r["Type"] for r in table] == list(gold["boxes/Type"]) and
+                  [r["edge_interval"] for r in table] ==
+                  list(gold["boxes/edge_interval"]),
+                  "error-box buckets != JAX's")
+            for r, want in zip(table, gold["boxes/stats"]):
+                got = np.array([r[c] for c in gold["boxes/columns"]])
+                unet = r["Type"].startswith("UNet")
+                bound = (1e-4 * np.abs(want) + UNET_PIXEL_ATOL) if unet \
+                    else 1e-5 * np.abs(want)
+                note("box stats " + ("unet" if unet else "filter"),
+                     np.max(np.abs(got - want)))
+                check(np.all(np.abs(got - want) <= bound),
+                      f"error box {r['Type']} {r['edge_interval']} "
+                      f"fast_conv={fc}: {got} against JAX {want}")
+            for i, name in enumerate(gold["diff/names"]):
+                f = root / names_c[names.index(str(name))]
+                kb = difference_image(f, "KB", reader=np.load)
+                unet = difference_image(f, "UNet", unet_dir, "LSBR",
+                                        fast_conv=fc, reader=np.load)
+                d_kb = float(np.abs(kb - gold["diff/KB"][i]).max())
+                d_unet = float(np.abs(unet - gold["diff/UNet"][i]).max())
+                note("diff KB", d_kb)
+                note("diff UNet", d_unet)
+                check(d_kb <= 1e-4 and d_unet <= UNET_PIXEL_ATOL,
+                      f"difference images fast_conv={fc}: "
+                                      f"KB {d_kb}, UNet {d_unet}")
+            f = root / names_c[names.index(str(gold["saliency/name"]))]
+            points = [tuple(map(int, p)) for p in gold["saliency/points"]]
+            patches = np.stack(saliency_patches(f, points, unet_dir, "LSBR",
+                                                fast_conv=fc,
+                                                reader=np.load))
+            d_sal = float(np.abs(patches - gold["saliency/patches"]).max())
+            note("saliency", d_sal)
+            check(d_sal <= 1e-4, f"saliency fast_conv={fc}: {d_sal}")
+        locs = sobel_locations(f, reader=np.load)
+        got = [tuple(map(int, v)) for v in locs.values()]
+        want = [tuple(map(int, v)) for v in gold["sobel/points"]]
+        check(list(locs) == list(gold["sobel/keys"]) and got == want,
+              f"sobel_locations {got} against JAX {want}")
+        launches_a = fused_reflect_conv.launches
+        print(f"analyses on the card against JAX (64 p128 covers and their "
+              f"LSBr stego at alpha {float(gold['alpha'])}, both fast_conv "
+              f"routes): correlation of 4 filters and 3 trained U-Nets, the "
+              f"error-box statistics, the KB and U-Net difference images, "
+              f"4 saliency patches, sobel_locations {got}; worst: " +
+              json.dumps(worst) + f"; B1 launches {launches_a}")
+
+        # (b) at full width: unet_2 at 512x512 on the trained LSBR run
+        cover = smooth_covers(1, 512, seed=21)[0]
+        (big,) = write_npy(root, "full", [cover])
+        sal = {fc: np.stack(saliency_patches(
+            root / big, SALIENCY_POINTS, unet_dir, "LSBR", fast_conv=fc,
+            reader=np.load)) for fc in (False, True)}
+        d_sal = float(np.abs(sal[True] - sal[False]).max())
+        sal_max = float(np.abs(sal[False]).max())
+        check(np.all(np.isfinite(sal[True])) and sal_max > 0 and
+              d_sal <= 1e-3 * sal_max,
+              f"512x512 saliency through B1 != cuDNN route: {d_sal}")
+        server, run = load_server(unet_dir, "LSBR", 512, torch.bfloat16,
+                                  fast_conv=True)
+        covers = smooth_covers(40, 512, seed=22)
+        paths = [str(root / n) for n in write_npy(root, "serve", covers)]
+        bad = str(root / "serve" / "bad.npy")
+        np.save(bad, covers[0][:256])
+        before = dict(fused_reflect_conv.launches_by_variant)
+        streamed = list(stream_paths(server, paths[:32], reader=np.load))
+        lines = paths[32:35] + [bad] + paths[35:39] + [""]
+        serial = list(serve_lines(server, lines, reader=np.load))
+        serve_counts = {k: v - before[k] for k, v in
+                        fused_reflect_conv.launches_by_variant.items()}
+        n_req = 32 + 7
+        check(serve_counts == {"wgmma": 9 * n_req, "direct": n_req,
+                               "fma": 0},
+              f"serve loop: B1 launches {serve_counts} for {n_req} requests")
+        check(len(serial) == 8 and "error" in serial[3] and
+              serial[3]["error"].startswith("ValueError: expected 512x512"),
+              f"serve loop: wrong-shape line {serial[3:4]}")
+        outs = streamed + serial[:3] + serial[4:]
+        got = np.array([[o["beta_hat"], o["l1"]] for o in outs])
+        want = np.array([server.predict(im) for im in covers[:39]])
+        check(np.allclose(got, want, rtol=1e-6, atol=1e-7) and
+              np.all(np.isfinite(got)),
+              "serve loop != UNetWSServer.predict")
+        corr_cov = smooth_covers(64, 512, seed=23)
+        names_c5 = write_npy(root, "c512", corr_cov)
+        names_s5 = write_npy(root, "s512", lsb_replace(corr_cov, 1.0,
+                                                       seed=24))
+        corr = {fc: correlation_rows(root, names_c5, names_s5, unets=unets,
+                                     fast_conv=fc, reader=np.load)
+                for fc in (False, True)}
+        c = {fc: np.array([r["correlation"] for r in corr[fc]])
+             for fc in corr}
+        d_corr = float(np.max(np.abs(c[True] - c[False])))
+        check(np.allclose(c[True], c[False], rtol=1e-4, atol=1e-6),
+              f"512x512 correlation: B1 route != cuDNN route, max |d| "
+              f"{d_corr}")
+        b1_launches = fused_reflect_conv.launches
+    finally:
+        fused_reflect_conv._launch = launch
+    by_dtype = {dt: [e for d, e in b1_calls if d == dt]
+                for dt in (torch.float32, torch.bfloat16)}
+    check(len(b1_calls) == b1_launches, "a B1 launch escaped the check")
+    check(fused_ws.launches == 0, f"B2 ran {fused_ws.launches} times on "
+                                  "the analyses path")
+    print(f"B1 = plain on every launch of the analyses path: "
+          f"{len(by_dtype[torch.float32])} f32 launches, max |err| "
+          f"{max(by_dtype[torch.float32]):.3e}; "
+          f"{len(by_dtype[torch.bfloat16])} bf16 launches, max |err| "
+          f"{max(by_dtype[torch.bfloat16]):.3e}; B2 launches 0")
+
+    # the times, without the per-launch check
+    model = {fc: load_pretrained_unet(unet_dir / "LSBR", run,
+                                      fast_conv=fc)[0]
+             for fc in (False, True)}
+    sal_ms = {}
+    for fc, m in model.items():
+        saliency_patch(m, cover, *SALIENCY_POINTS[0])
+        t0 = time.perf_counter()
+        for i, j in SALIENCY_POINTS:
+            saliency_patch(m, cover, i, j)
+        sal_ms[fc] = 1e3 * (time.perf_counter() - t0) / len(SALIENCY_POINTS)
+    del model
+    serving = {}
+    for fc in (True, False):
+        srv = server if fc else load_server(unet_dir, "LSBR", 512,
+                                            torch.bfloat16)[0]
+        list(stream_paths(srv, paths[:8], reader=np.load))
+        t0 = time.perf_counter()
+        list(stream_paths(srv, paths[:32], reader=np.load))
+        serving[fc] = {"paths_streamed_img_s":
+                       32 / (time.perf_counter() - t0),
+                       **measure_latency(srv, reps=30)}
+        del srv
+    corr_ips = {}
+    for fc in (False, True):
+        t0 = time.perf_counter()
+        correlation_rows(root, names_c5, names_s5, unets=unets,
+                         fast_conv=fc, reader=np.load)
+        corr_ips[fc] = len(names_c5) / (time.perf_counter() - t0)
+    print(f"full width ({smi_line}), trained LSBR unet_2 {run} at "
+          f"512x512: saliency f32, 4 points {SALIENCY_POINTS} (B1 against "
+          f"cuDNN max |d| {d_sal:.3e}, max |patch| {sal_max:.4e}): "
+          f"{sal_ms[True]:.2f} ms a point on B1, {sal_ms[False]:.2f} on "
+          f"cuDNN (host clock, the gradient on the host); serve bf16, "
+          f"stream_paths over 32 .npy paths (host clock, decode included) "
+          f"and measure_latency, --fast-conv: " + json.dumps(serving[True]) +
+          "; cuDNN: " + json.dumps(serving[False]) +
+          f"; correlation core over 64 pairs (4 filters + 3 U-Nets, f32, "
+          f"B=8; B1 against cuDNN max |d| {d_corr:.3e}): "
+          f"{corr_ips[True]:.2f} pairs/s on B1, {corr_ips[False]:.2f} on "
+          "cuDNN (host clock, .npy decode and the host's correlation "
+          "included)")
+
+    # (c) the hooks on the card
+    trace_dir = root / "trace"
+    os.environ["WSUNET_PROFILE"] = str(trace_dir)
+    try:
+        m = load_pretrained_unet(unet_dir / "LSBR", run, fast_conv=True)[0]
+        with profiling.profile():
+            saliency_patch(m, cover, *SALIENCY_POINTS[0])
+    finally:
+        del os.environ["WSUNET_PROFILE"]
+    (trace,) = trace_dir.glob("*.pt.trace.json")
+    kernels = {e["name"] for e in json.loads(trace.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"}
+    b1_named = sorted({v for k in kernels for v in ("fma_kernel",
+                                                    "direct_kernel")
+                       if v in k})
+    check(b1_named == ["direct_kernel", "fma_kernel"],
+          f"the trace names B1's kernels {b1_named}: {sorted(kernels)}")
+    with profiling.nan_check():
+        raised = []
+        try:
+            torch.zeros(4, device="cuda") / 0
+        except FloatingPointError as e:
+            raised.append(str(e))
+        x, w, b = conv_inputs((1, 8, 8, 16), 16, torch.float32, seed=3)
+        try:
+            fused_reflect_conv.conv3x3_reflect_fused(
+                torch.zeros_like(x), torch.full_like(w, float("inf")), b)
+        except FloatingPointError as e:
+            raised.append(str(e))
+    check(len(raised) == 2 and "B1" in raised[1],
+          f"nan_check on the card raised {raised}")
+    print(f"hooks: WSUNET_PROFILE around one saliency call wrote "
+          f"{trace.name} naming B1's kernels {b1_named}; nan_check raised "
+          f"FloatingPointError in a torch op ({raised[0]}) and at B1's "
+          f"output ({raised[1]})")
+    shutil.rmtree(root)
+    return {"b1_launches": b1_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from wsunet_tpu_torch._device import disable_tf32
-    from wsunet_tpu_torch.analyses import unet_saliency
+    from wsunet_tpu_torch.analyses import saliency_patch
     from wsunet_tpu_torch.models import get_model, init_unet
     from wsunet_tpu_torch.ops import (NAMED_FILTERS_2D, _cuda_build,
                                       fused_reflect_conv, fused_ws,
@@ -1899,7 +2224,7 @@ def main() -> int:
     sal_img = smooth_covers(1, 512, seed=13)[0]
     patches = {}
     for fc, m in ((False, model_gpu), (True, fast_gpu)):
-        patches[fc] = unet_saliency(m, sal_img, 200, 300)
+        patches[fc] = saliency_patch(m, sal_img, 200, 300)
         sal = b1_take()
         want = {"wgmma": 0, "direct": 1, "fma": 9} if fc else \
             dict.fromkeys(sal, 0)
@@ -2132,6 +2457,10 @@ def main() -> int:
     b0_training_path(smi.stdout.strip().splitlines()[0])
     t = phase(12, "B0 training path and filters-eval", t)
 
+    # ---- 13. the analyses and the serving CLI
+    ana = analyses_path(smi.stdout.strip().splitlines()[0])
+    t = phase(13, "analyses and the serving CLI", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -2140,6 +2469,7 @@ def main() -> int:
         "replaces": "wsunet_tpu/ops/pallas_ws.py:90",
         "launches": attack_launches,
         "launches_detection_path": det["b2_launches"],
+        "launches_analyses_path": 0,
         "max_abs_err": max_err,
         "ms": b2_entry["ms"],
         "eager_ms": b2_entry["eager_ms"],
@@ -2157,6 +2487,7 @@ def main() -> int:
         "launches": b1_launches,
         "launches_by_variant": b1_path,
         "launches_detection_path": det["b1_launches"],
+        "launches_analyses_path": ana["b1_launches"],
         "max_abs_err": max(b1_err_max.values()),
         **b1_entry,
     }]}))

@@ -17,6 +17,7 @@ port reads with numpy and json alone:
     weights/golden/p128_train_step.npz
     weights/golden/p128_b0_train_step.npz
     weights/golden/p128_filters.npz
+    weights/golden/p128_analyses.npz
 
 The golden file holds the 64 covers of ``data_ablation/p128``, their LSBr
 stego at alpha 0.1 and 0.01 (drawn as ``python -m wsunet_tpu simulate``
@@ -62,10 +63,11 @@ of that ill-conditioned step; and the stem kernel
 of a ``get_b0(..., stem_init="highpass")`` init.  ``p128_filters.npz``
 holds ``filters-eval``'s per-image MAE and wMAE for KB and AVG on the 64
 covers (channel 3, every ``inbayer``) and on the color4 case's covers and
-stego (channels 0, 1 and 2).
+stego (channels 0, 1 and 2).  ``p128_analyses.npz`` holds the analyses'
+numbers on the 64 covers and their LSBr stego at alpha 0.1
+(``golden_analyses``).
 
     python scripts/export_torch_weights.py                 # the defaults
-    python scripts/export_torch_weights.py --run models/unet/HILLR/<run>
     python scripts/export_torch_weights.py --run models/b0/HILLR/<run>
     python scripts/export_torch_weights.py --out /tmp/w --no-golden
 
@@ -83,13 +85,15 @@ import numpy as np
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-# the two runs ``ws-eval --models UNet`` and ``roc`` need (LSBR l1ws and
-# dropout l1); HILLR is exported on demand with --run
+# the runs ``ws-eval --models UNet`` and ``roc`` need (LSBR l1ws and
+# dropout l1), and HILLR, the third U-Net of ``correlation``
 DEFAULT_RUNS = [
     "models/unet/LSBR/"
     "260819071329-tpu-unet_2-alpha_0.4_grayscale_l1ws_0.25_lr_2e-05_",
     "models/unet/dropout/"
     "260817015643-tpu-unet_2-grayscale_l1_lr_0.0001_dr_0.1",
+    "models/unet/HILLR/"
+    "260819120519-tpu-unet_2-alpha_0.4_grayscale_l1ws_0.25_lr_2e-05_",
 ]
 # the two LSBR B0 runs ``roc --b0`` uses (strided with parity features;
 # no stem stride with the LSBr-reference plane); HILLR on demand
@@ -870,6 +874,103 @@ def golden_filters(out: pathlib.Path) -> pathlib.Path:
     return out
 
 
+# the analyses golden file: correlation's predictors (its filters, then
+# its U-Nets in the JAX CLI's order), error-boxes' populations, the
+# difference images of two covers and four saliency points of one
+ANALYSES_FILTERS = ("1", "AVG9", "AVG", "KB")
+ANALYSES_UNETS = ("dropout", "LSBR", "HILLR")
+ANALYSES_BOXES = (("dropout", "UNet_l1"), ("LSBR", "UNet_l1ws"))
+ANALYSES_ALPHA = 0.1
+ANALYSES_DIFF_COVERS = (0, 40)
+ANALYSES_SALIENCY_COVER = 0
+ANALYSES_POINTS = ((20, 30), (64, 64), (100, 110), (9, 25))
+
+
+def golden_analyses(out: pathlib.Path) -> pathlib.Path:
+    """The analyses' numbers, computed with the JAX package on the CPU
+    from the committed U-Net runs (``models/unet``), on the 64 covers of
+    ``p128_lsbr.npz`` and their LSBr stego at ``ANALYSES_ALPHA``:
+    ``correlation``'s per-pair correlation and p-value of each predictor
+    (the step of ``analyses.correlation.run_correlation``), the
+    ``ae_boxes_3.csv`` statistics of ``error-boxes`` on the covers (every
+    pixel: ``num_pixels`` None, the JAX default), ``contour``'s KB and
+    LSBR U-Net difference images of two covers, and ``saliency``'s LSBR
+    patches at four points of one cover with its ``sobel_locations``."""
+    jax = _cpu_jax()
+    import jax.numpy as jnp
+
+    from wsunet_tpu.analyses.contour import difference_image
+    from wsunet_tpu.analyses.correlation import pair_correlation
+    from wsunet_tpu.analyses.error_boxes import (_filter_abs_residuals,
+                                                 _unet_abs_residuals,
+                                                 bucket_quantiles)
+    from wsunet_tpu.analyses.saliency import sobel_locations, unet_saliency
+    from wsunet_tpu.data import precovers
+    from wsunet_tpu.ops import NAMED_FILTERS_2D, filter_predict
+    from wsunet_tpu.train.checkpoint import load_config
+    from wsunet_tpu.utils.registry import get_model_name
+    from wsunet_tpu.ws.unet_eval import get_unet_estimator
+
+    unet_dir = REPO / "models" / "unet"
+    df = precovers(P128)
+    names = list(df["name"])
+    sets = _golden_sets(jax, names)
+    covers = sets["cover"].astype("float32")
+    stegos = sets[str(ANALYSES_ALPHA)].astype("float32")
+    arrays = {"names": np.array(names), "alpha": np.array(ANALYSES_ALPHA)}
+
+    predictors, unet_runs = [], {}
+    for name in ANALYSES_FILTERS:
+        predictors.append((name, jax.jit(
+            lambda x, k=NAMED_FILTERS_2D[name]: filter_predict(x, k))))
+    for method in ANALYSES_UNETS:
+        run = get_model_name(unet_dir, method)
+        unet_runs[method] = run
+        loss = load_config(unet_dir / method / run).get("loss", "")
+        predictors.append((f"UNet_{method}_{loss}",
+                           get_unet_estimator(unet_dir / method, run)))
+    for label, predict in predictors:
+        x_hats = np.asarray(predict(jnp.asarray(stegos)))
+        res = np.array([pair_correlation(covers[i], stegos[i], x_hats[i])
+                        for i in range(len(names))])
+        arrays[f"correlation/{label}"] = res[:, 0]
+        arrays[f"p-value/{label}"] = res[:, 1]
+    arrays["correlation_models"] = np.array([lb for lb, _ in predictors])
+    arrays["unet_runs"] = np.array([unet_runs[m] for m in ANALYSES_UNETS])
+
+    results = {"KB": _filter_abs_residuals(P128, df, "KB", None),
+               "AVG": _filter_abs_residuals(P128, df, "AVG", None)}
+    for method, label in ANALYSES_BOXES:
+        results[label] = _unet_abs_residuals(
+            P128, df, get_unet_estimator(unet_dir / method,
+                                         unet_runs[method]), None)
+    boxes = bucket_quantiles(results, anchor="KB")
+    arrays["boxes/Type"] = boxes["Type"].to_numpy(str)
+    arrays["boxes/edge_interval"] = boxes["edge_interval"].to_numpy(str)
+    arrays["boxes/columns"] = np.array(list(boxes.columns[2:]))
+    arrays["boxes/stats"] = boxes.iloc[:, 2:].to_numpy(np.float64)
+
+    diff = [P128 / names[i] for i in ANALYSES_DIFF_COVERS]
+    arrays["diff/names"] = np.array([names[i] for i in ANALYSES_DIFF_COVERS])
+    arrays["diff/KB"] = np.stack([difference_image(f, "KB") for f in diff])
+    arrays["diff/UNet"] = np.stack([difference_image(
+        f, "UNet", model_dir=unet_dir, stego_method="LSBR") for f in diff])
+
+    fname = P128 / names[ANALYSES_SALIENCY_COVER]
+    arrays["saliency/name"] = np.array(names[ANALYSES_SALIENCY_COVER])
+    arrays["saliency/points"] = np.array(ANALYSES_POINTS)
+    arrays["saliency/patches"] = np.stack([
+        unet_saliency(fname, i, j, unet_dir, "LSBR")
+        for i, j in ANALYSES_POINTS]).astype(np.float32)
+    locs = sobel_locations(fname)
+    arrays["sobel/keys"] = np.array(list(locs))
+    arrays["sobel/points"] = np.array([tuple(map(int, v))
+                                       for v in locs.values()])
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **arrays)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", action="append", type=pathlib.Path,
@@ -895,7 +996,9 @@ def main(argv=None) -> int:
                     golden_b0_train(REPO / DEFAULT_B0_RUNS[0], args.out /
                                     "golden" / "p128_b0_train_step.npz"),
                     golden_filters(args.out / "golden" /
-                                   "p128_filters.npz")):
+                                   "p128_filters.npz"),
+                    golden_analyses(args.out / "golden" /
+                                    "p128_analyses.npz")):
             print(f"wrote {out}")
     return 0
 

@@ -34,7 +34,7 @@ RUNS = {
     "HILLR": "260819120519-tpu-unet_2-alpha_0.4_grayscale_l1ws_0.25_lr_2e-05_",
     "dropout": "260817015643-tpu-unet_2-grayscale_l1_lr_0.0001_dr_0.1",
 }
-COMMITTED = ("LSBR", "dropout")
+COMMITTED = ("LSBR", "dropout", "HILLR")
 
 
 def _exporter():
@@ -201,6 +201,28 @@ def test_committed_filters_golden_equals_a_fresh_one(fresh):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         assert a["mae/KB/none"].shape == (64,)
         assert a["color/wmae/AVG/2"].shape == (2, 8)
+
+
+def test_committed_analyses_golden_equals_a_fresh_one(fresh):
+    committed = REPO / "weights" / "golden" / "p128_analyses.npz"
+    with np.load(committed) as a, \
+            np.load(fresh / "golden" / "p128_analyses.npz") as b, \
+            np.load(REPO / "weights" / "golden" / "p128_lsbr.npz") as c:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert (a["names"] == c["names"]).all()
+        assert list(a["correlation_models"]) == [
+            "1", "AVG9", "AVG", "KB", "UNet_dropout_l1", "UNet_LSBR_l1ws",
+            "UNet_HILLR_l1ws"]
+        assert list(a["unet_runs"]) == [RUNS[m] for m in ("dropout", "LSBR",
+                                                          "HILLR")]
+        assert a["correlation/KB"].shape == (64,)
+        assert sorted(set(a["boxes/Type"])) == ["AVG", "KB", "UNet_l1",
+                                                "UNet_l1ws"]
+        assert a["saliency/patches"].shape == (4, 17, 17)
+        assert a["diff/UNet"].shape == (2, 126, 126)
+    assert committed.stat().st_size < 1 << 20
 
 
 def _fake_run(root, method, name, loss, params=True, **extra):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from wsunet_tpu_torch.analyses import unet_saliency
+from wsunet_tpu_torch.analyses import saliency_patch
 from wsunet_tpu_torch.models import get_model, init_unet
 from wsunet_tpu_torch.ops import (NAMED_FILTERS_2D, fused_reflect_conv,
                                   fused_ws, ws_attack)
@@ -130,8 +130,8 @@ def test_fast_conv_unet_on_card(cuda):
     got = srv.predict(x[0])
     assert np.all(np.isfinite(got)) and abs(got[0] - float(b0[0])) < 5e-3
     img = _u8((1, 64, 64), seed=7)[0]
-    s0 = unet_saliency(copy.deepcopy(model).to(cuda), img, 30, 33)
-    s1 = unet_saliency(copy.deepcopy(fast).to(cuda), img, 30, 33)
+    s0 = saliency_patch(copy.deepcopy(model).to(cuda), img, 30, 33)
+    s1 = saliency_patch(copy.deepcopy(fast).to(cuda), img, 30, 33)
     # a max-pool near-tie can move the gradient (tests/test_torch_saliency)
     np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-3 * np.abs(s0).max())
 
@@ -584,3 +584,122 @@ def test_train_b0_names_on_card_writes_a_loadable_run(cuda, tmp_path):
     model, _ = load_pretrained_b0(exp.parent, exp.name, device="cuda")
     p = infer_b0(model, px[:4], device="cuda")
     assert p.shape == (4,) and bool(torch.isfinite(p).all())
+
+
+# the JAX package's analyses on the p128 covers and their LSBr stego
+GOLDEN_ANALYSES = REPO / "weights" / "golden" / "p128_analyses.npz"
+UNET_DIR = REPO / "weights" / "unet"
+
+
+def _analyses_files(root):
+    """The golden covers and their stego at the golden alpha as .npy files
+    under ``root``: (golden arrays, cover names, stego names)."""
+    gold = np.load(GOLDEN_ANALYSES)
+    lsbr = np.load(GOLDEN)
+    s = list(lsbr["sets"]).index(str(float(gold["alpha"])))
+    (root / "images").mkdir()
+    (root / "stego").mkdir()
+    names_c, names_s = [], []
+    for i, (c, st) in enumerate(zip(lsbr["pixels"][0], lsbr["pixels"][s])):
+        names_c.append(f"images/{i:02d}.npy")
+        names_s.append(f"stego/{i:02d}.npy")
+        np.save(root / names_c[-1], c)
+        np.save(root / names_s[-1], st)
+    return gold, names_c, names_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_conv", [False, True])
+def test_analyses_on_card_match_golden(cuda, tmp_path, fast_conv):
+    """correlation's rows, error-boxes' statistics, the difference images
+    and the saliency patches on the card against the JAX package's, at
+    tests/test_torch_analyses.py's bounds (saliency: 1e-4, the bound of
+    a route whose convs sum in another order than XLA's CPU conv; the
+    U-Net per pixel 2.55e-4: 1.07e-4 seen on the card)."""
+    from wsunet_tpu_torch.analyses.contour import difference_image
+    from wsunet_tpu_torch.analyses.correlation import (correlation_rows,
+                                                       unet_runs)
+    from wsunet_tpu_torch.analyses.error_boxes import (box_stats,
+                                                       residual_populations)
+    from wsunet_tpu_torch.analyses.saliency import (saliency_patches,
+                                                    sobel_locations)
+
+    gold, names_c, names_s = _analyses_files(tmp_path)
+    unets = unet_runs(UNET_DIR, ["dropout", "LSBR", "HILLR"])
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    rows = correlation_rows(tmp_path, names_c, names_s, unets=unets,
+                            fast_conv=fast_conv, reader=np.load)
+    assert fused_reflect_conv.launches == (3 * 8 * 10 if fast_conv else 0)
+    labels = [str(m) for m in gold["correlation_models"]]
+    assert [r["model_name"] for r in rows[::64]] == labels
+    for k, label in enumerate(labels):
+        part = rows[64 * k:64 * (k + 1)]
+        rtol = 1e-4 if label.startswith("UNet") else 1e-5
+        # atol: the statistic's f32 rounding, at correlations down to 5e-8
+        np.testing.assert_allclose([r["correlation"] for r in part],
+                                   gold[f"correlation/{label}"], rtol=rtol,
+                                   atol=1e-7)
+        p = np.array([r["p-value"] for r in part])
+        want = gold[f"p-value/{label}"]
+        assert ((p == 0) == (want == 0)).all()
+        np.testing.assert_allclose(np.log(p[want > 0]),
+                                   np.log(want[want > 0]), rtol=1e-3)
+    pops = residual_populations(
+        tmp_path, names_c, unets=[("UNet_l1", unets[0][1]),
+                                  ("UNet_l1ws", unets[1][1])],
+        fast_conv=fast_conv, reader=np.load)
+    table = box_stats(pops, "KB")
+    assert [r["Type"] for r in table] == list(gold["boxes/Type"])
+    for r, want in zip(table, gold["boxes/stats"]):
+        unet = r["Type"].startswith("UNet")
+        np.testing.assert_allclose(
+            [r[c] for c in gold["boxes/columns"]], want,
+            rtol=1e-4 if unet else 1e-5, atol=2.55e-4 if unet else 0)
+    names = [str(n) for n in gold["names"]]
+    for i, name in enumerate(gold["diff/names"]):
+        f = tmp_path / names_c[names.index(str(name))]
+        kb = difference_image(f, "KB", reader=np.load)
+        np.testing.assert_allclose(kb, gold["diff/KB"][i], rtol=0,
+                                   atol=1e-4)
+        unet = difference_image(f, "UNet", UNET_DIR, "LSBR",
+                                fast_conv=fast_conv, reader=np.load)
+        np.testing.assert_allclose(unet, gold["diff/UNet"][i], rtol=0,
+                                   atol=2.55e-4)
+    f = tmp_path / names_c[names.index(str(gold["saliency/name"]))]
+    points = [tuple(map(int, p)) for p in gold["saliency/points"]]
+    patches = saliency_patches(f, points, UNET_DIR, "LSBR",
+                               fast_conv=fast_conv, reader=np.load)
+    np.testing.assert_allclose(np.stack(patches), gold["saliency/patches"],
+                               rtol=0, atol=1e-4)
+    locs = sobel_locations(f, reader=np.load)
+    assert list(locs) == list(gold["sobel/keys"])
+    assert [tuple(map(int, v)) for v in locs.values()] == \
+        [tuple(map(int, v)) for v in gold["sobel/points"]]
+    assert fused_ws.launches == 0
+
+
+@pytest.mark.cuda
+def test_serve_loop_on_b1(cuda, tmp_path):
+    """``serve``'s serial loop over .npy paths, bf16 on B1: 9 wgmma + 1
+    direct launches a request, the numbers of ``UNetWSServer.predict``,
+    and an inline error for a wrong-shape image."""
+    from wsunet_tpu_torch.serve import serve_lines
+
+    gold = np.load(GOLDEN)
+    model, _ = load_pretrained_unet(UNET_DIR / "LSBR", str(gold["run"]),
+                                    compute_dtype=torch.bfloat16,
+                                    fast_conv=True)
+    srv = UNetWSServer(model, size=128)
+    paths = []
+    for i, img in enumerate(gold["pixels"][0][:3]):
+        paths.append(str(tmp_path / f"{i}.npy"))
+        np.save(paths[-1], img if i != 1 else img[:64])
+    fused_reflect_conv.reset_launches()
+    out = list(serve_lines(srv, [p + "\n" for p in paths], reader=np.load))
+    assert fused_reflect_conv.launches_by_variant == {
+        "wgmma": 18, "direct": 2, "fma": 0}
+    assert out[1]["error"].startswith("ValueError: expected 128x128")
+    for i in (0, 2):
+        assert (out[i]["beta_hat"], out[i]["l1"]) == \
+            srv.predict(gold["pixels"][0][i])

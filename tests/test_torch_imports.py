@@ -1,6 +1,7 @@
 """The port's import rule: no module of wsunet_tpu_torch, and not
 chip_smoke.py, imports JAX, the JAX package or scikit-learn anywhere, and
-none imports pandas, PIL, matplotlib, cv2 or scipy when it is imported
+none imports pandas, PIL, matplotlib, seaborn, cv2 or scipy when it is
+imported
 (the card's machine has none of them; the CSV and plotting edges import
 them inside their functions).
 
@@ -19,7 +20,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "wsunet_tpu_torch"
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "orbax", "wsunet_tpu", "sklearn",
-           "pandas", "PIL", "matplotlib", "cv2", "scipy"]
+           "pandas", "PIL", "matplotlib", "seaborn", "cv2", "scipy"]
 NEVER = {"jax", "jaxlib", "flax", "optax", "orbax", "wsunet_tpu", "sklearn"}
 
 
@@ -110,4 +111,20 @@ def test_the_b0_training_and_filters_modules_are_covered():
                 "wsunet_tpu_torch.models.b0",
                 "wsunet_tpu_torch.models.convert",
                 "wsunet_tpu_torch.ops.filters"):
+        assert mod in MODULES
+
+
+def test_the_analyses_and_cli_edge_modules_are_covered():
+    """The analyses', init-dataset's and the hooks' modules are among
+    those imported and read above."""
+    for mod in ("wsunet_tpu_torch.analyses",
+                "wsunet_tpu_torch.analyses.correlation",
+                "wsunet_tpu_torch.analyses.error_boxes",
+                "wsunet_tpu_torch.analyses.contour",
+                "wsunet_tpu_torch.analyses.saliency",
+                "wsunet_tpu_torch.utils.aggregates",
+                "wsunet_tpu_torch.utils.profiling",
+                "wsunet_tpu_torch.data.init_dataset",
+                "wsunet_tpu_torch.serve",
+                "wsunet_tpu_torch.cli"):
         assert mod in MODULES

@@ -10,8 +10,11 @@ counterpart there (``tests/test_torch_*.py``).  The slices so far cover:
   reflect conv through the hand-written CUDA kernel
   ``ops.fused_reflect_conv`` (the port of the Pallas kernel
   ``experiments/pallas_reflect_conv.py``), built with nvcc at first use;
-- the U-Net's saliency gradient (``analyses.saliency``), through that
-  kernel's forward when ``fast_conv=True``;
+- the analyses (``analyses``: the saliency gradient, through that
+  kernel's forward when ``fast_conv=True``, the residual/change
+  correlation, the error boxes, the difference images) with their
+  subcommands, ``init-dataset``, ``serve``, and the profiling and NaN
+  hooks of every command (``utils.profiling``);
 - the filter WS attack (``ws-eval`` with KB/AVG/AVG9 and the ``-w``
   weighting), which on CUDA runs the hand-written CUDA kernel
   ``ops.fused_ws`` (the port of the Pallas kernel ``ops/pallas_ws.py``),

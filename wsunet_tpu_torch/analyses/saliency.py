@@ -1,19 +1,24 @@
-"""Gradient saliency of the U-Net predictor (port of the core of
+"""Gradient saliency of the U-Net predictor (port of
 ``wsunet_tpu/analyses/saliency.py``).
 
-- ``unet_saliency``: the gradient of one output pixel of a torch ``UNet``
+- ``saliency_patch``: the gradient of one output pixel of a torch ``UNet``
   with respect to the input image, by ``torch.autograd`` where JAX takes
   ``jax.grad``.  With ``fast_conv=True`` the forward runs kernel B1 and
-  the backward the VJP of its plain version (``ops.fused_reflect_conv``).
+  the backward the VJP of its plain version (``ops.fused_reflect_conv``),
+  as JAX's custom VJP does.
+- ``unet_saliency``: the JAX signature: the trained run of
+  ``stego_method`` is found by name under ``model_dir``
+  (``utils.registry``, the exported runs of ``weights/unet``) and loaded
+  with ``ws.unet_eval.load_pretrained_unet``; ``saliency_patches`` loads it
+  once for several points.
 - ``sobel_locations``: the interesting-point finder (Sobel gradients
-  through ``ops.filter_predict``, then ratio maxima and box-filtered
-  gradient-magnitude extrema), on the CPU.
-
-The model comes in as a torch ``UNet``: the checkpoint lookup of the JAX
-version (``get_model_name``, Orbax restore) waits for a checkpoint format
-the port can read, and so does ``plot_saliency_grid``.
+  through ``ops.filter_predict`` on the device, then ratio maxima and
+  box-filtered gradient-magnitude extrema).
+- ``render_dots`` and ``plot_saliency_grid``: the figures (PIL,
+  matplotlib), on the host.
 """
 
+import pathlib
 import typing
 
 import numpy as np
@@ -23,20 +28,29 @@ from .._device import resolve_device
 from ..io import imread_gray_u8
 from ..ops.filters import filter_predict
 from ..utils.errors import UserError
+from ..utils.registry import get_model_name
+from ..ws.unet_eval import load_pretrained_unet
 
 SOBEL_H = np.array([[1, 2, 1], [0, 0, 0], [-1, -2, -1]], dtype="float32")
 SOBEL_V = np.array([[1, 0, -1], [2, 0, -2], [1, 0, -1]], dtype="float32")
 BOX9 = np.ones((3, 3), dtype="float32")
 
 
-def sobel_locations(fname) -> typing.Dict[str, tuple]:
+def sobel_locations(fname, reader: typing.Callable = imread_gray_u8,
+                    device=None) -> typing.Dict[str, tuple]:
     """gh_max / gv_max / g_max / g_min interesting points of an image
-    file (indices into the VALID filter grid, as in the JAX package)."""
-    x = torch.from_numpy(imread_gray_u8(fname).astype("float32"))[None]
-    gh = filter_predict(x, SOBEL_H)[0].numpy()
-    gv = filter_predict(x, SOBEL_V)[0].numpy()
-    g = filter_predict(torch.from_numpy(np.sqrt(gh ** 2 + gv ** 2))[None],
-                       BOX9)[0].numpy()
+    file (indices into the VALID filter grid, as in the JAX package),
+    filtered on ``device`` (None = CUDA)."""
+    dev = resolve_device(device)
+
+    def predict(x: np.ndarray, kernel) -> np.ndarray:
+        return filter_predict(torch.from_numpy(x[None]).to(dev),
+                              kernel)[0].cpu().numpy()
+
+    x = reader(fname).astype("float32")
+    gh = predict(x, SOBEL_H)
+    gv = predict(x, SOBEL_V)
+    g = predict(np.sqrt(gh ** 2 + gv ** 2), BOX9)
     return {
         "gh_max": np.unravel_index(np.abs(gh / (.1 + gv)).argmax(), gh.shape),
         "gv_max": np.unravel_index(np.abs(gv / (.1 + gh)).argmax(), gv.shape),
@@ -45,8 +59,28 @@ def sobel_locations(fname) -> typing.Dict[str, tuple]:
     }
 
 
-def unet_saliency(model, image_u8: np.ndarray, i: int, j: int, n: int = 8,
-                  device=None) -> np.ndarray:
+def render_dots(fname, outfile: pathlib.Path,
+                reader: typing.Callable = imread_gray_u8,
+                device=None) -> pathlib.Path:
+    """``saliency_image_dots.png``: the image with the four interesting
+    points as single red pixels.  As in the JAX package, the valid-grid
+    indices are applied to the full image without the +1 border offset,
+    so the figure matches its pixels."""
+    from PIL import Image
+
+    x = reader(fname)
+    y = np.repeat(x[..., None] if x.ndim == 2 else x, 3, axis=-1)
+    for loc in sobel_locations(fname, reader=reader,
+                               device=device).values():
+        y[loc[:2]] = [255, 0, 0]
+    outfile = pathlib.Path(outfile)
+    outfile.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(y).save(outfile)
+    return outfile
+
+
+def saliency_patch(model, image_u8: np.ndarray, i: int, j: int, n: int = 8,
+                   device=None) -> np.ndarray:
     """(2n+1)x(2n+1) patch around (i, j) of the gradient of output pixel
     (i, j) with respect to the input pixels (0..255), times 255: the
     gradient with respect to the model's input x/255.  ``image_u8`` is
@@ -65,3 +99,79 @@ def unet_saliency(model, image_u8: np.ndarray, i: int, j: int, n: int = 8,
     (grad,) = torch.autograd.grad(y[0, 0, i, j], x)
     slc = grad.cpu().numpy() * 255.0
     return slc[i - n:i + n + 1, j - n:j + n + 1]
+
+
+def saliency_patches(
+    fname,
+    points: typing.Sequence[typing.Tuple[int, int]],
+    model_dir: pathlib.Path,
+    stego_method: str = "LSBR",
+    n: int = 8,
+    fast_conv=False,
+    reader: typing.Callable = imread_gray_u8,
+    device=None,
+) -> typing.List[np.ndarray]:
+    """``unet_saliency`` at each of ``points``, the run loaded once."""
+    dev = resolve_device(device)
+    name = get_model_name(model_dir, stego_method)
+    model, _ = load_pretrained_unet(pathlib.Path(model_dir) / stego_method,
+                                    name, fast_conv=fast_conv, device=dev)
+    img = reader(fname)
+    return [saliency_patch(model, img, i, j, n, device=dev)
+            for i, j in points]
+
+
+def unet_saliency(
+    fname,
+    i: int,
+    j: int,
+    model_dir: pathlib.Path,
+    stego_method: str = "LSBR",
+    n: int = 8,
+    fast_conv=False,
+    reader: typing.Callable = imread_gray_u8,
+    device=None,
+) -> np.ndarray:
+    """(2n+1)x(2n+1) gradient patch of output pixel (i, j) of the trained
+    U-Net of ``stego_method`` with respect to the image ``fname``."""
+    return saliency_patches(fname, [(i, j)], model_dir, stego_method, n,
+                            fast_conv=fast_conv, reader=reader,
+                            device=device)[0]
+
+
+def plot_saliency_grid(
+    fname,
+    model_dir: pathlib.Path,
+    stego_method: str,
+    points: typing.Sequence[typing.Tuple[int, int]],
+    outfile: pathlib.Path,
+    vlim: float = None,
+    fast_conv=False,
+    reader: typing.Callable = imread_gray_u8,
+    device=None,
+) -> pathlib.Path:
+    """2x2 coolwarm grid of the patches at four points.  The JAX package
+    reloads the run for each point; here it is loaded once, with the same
+    numbers."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if vlim is None:
+        vlim = 1.0 if stego_method == "dropout" else 0.5
+    patches = saliency_patches(fname, points, model_dir, stego_method,
+                               fast_conv=fast_conv, reader=reader,
+                               device=device)
+    fig, ax = plt.subplots(2, 2)
+    im = None
+    for idx, sal in enumerate(patches):
+        im = ax[idx // 2, idx % 2].imshow(
+            sal, vmin=-vlim, vmax=vlim, cmap="coolwarm")
+    fig.subplots_adjust(right=0.85)
+    cbar_ax = fig.add_axes([0.88, 0.15, 0.04, 0.7])
+    fig.colorbar(im, cax=cbar_ax)
+    outfile = pathlib.Path(outfile)
+    outfile.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(outfile, dpi=300, bbox_inches="tight")
+    plt.close(fig)
+    return outfile

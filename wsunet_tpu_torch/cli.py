@@ -1,4 +1,4 @@
-"""Command-line interface (port of part of ``wsunet_tpu/cli.py``).
+"""Command-line interface (port of ``wsunet_tpu/cli.py``).
 
     python -m wsunet_tpu_torch filters-eval   KB/AVG prediction error
                                               (MAE, wMAE)
@@ -9,27 +9,43 @@
                                               detectors
     python -m wsunet_tpu_torch train-unet     train the U-Net predictor
     python -m wsunet_tpu_torch train-b0       train the B0 detector
+    python -m wsunet_tpu_torch correlation    residual/change correlation
+    python -m wsunet_tpu_torch error-boxes    AE boxplots bucketed by KB
+                                              error
+    python -m wsunet_tpu_torch contour        difference-image contours
+    python -m wsunet_tpu_torch saliency       U-Net gradient saliency grid
+    python -m wsunet_tpu_torch init-dataset   files.csv + split CSVs for a
+                                              cover folder
     python -m wsunet_tpu_torch simulate       generate stego fixtures
+    python -m wsunet_tpu_torch serve          single-image WS estimation
+                                              loop
 
 The flags and defaults are the JAX CLI's, and the commands write the same
 files (``prediction/filters.csv``, ``estimation/ws_sweep_<train>.csv``,
 ``estimation/ws_<method>.csv``, ``detection/b0.csv``,
 ``detection/{auc,roc}_<alpha>.csv``, ``roc_<alpha>.png``, a training run's
-directory, and
+directory, ``estimation/correlation.csv``, ``prediction/ae_boxes_3.{csv,
+png}``, ``prediction/contour_<model>_<stem>.png``,
+``prediction/saliency_<method>.png`` and ``saliency_image_dots.png``,
+``files.csv`` and ``split_{tr,va,te}.csv``, and
 ``stego_<method>_alpha_<alpha>_independent_images/`` with its
-``files.csv``), with these differences: the model directories default to
-the exported runs (``--model-dir`` / ``--unet-model-dir``
+``files.csv``; ``serve`` prints one JSON line an image), with these
+differences: the model directories default to the exported runs where the
+JAX CLI's default to ``models/`` (``--model-dir`` / ``--unet-model-dir``
 ``weights/unet``, ``detector-eval --model-dir`` / ``--b0-model-dir``
 ``weights/b0``; ``scripts/export_torch_weights.py``), ``--device`` picks
-the device (default CUDA), and ``--fast-conv`` runs the U-Net's 3x3 convs
-through kernel B1 instead of cuDNN.  ``ws-eval --models OLS`` fits the OLS
-predictor on the covers, in the colour layouts for two or three
-``--channels``.  ``simulate --method LSBr`` draws from torch generators
-seeded per image as the JAX CLI seeds its keys, so its stego pixels are
-not the JAX CLI's (HILLr's are).  pandas, PIL and matplotlib are imported
-by the commands; the other subcommands of the JAX CLI (the analyses,
-``init-dataset``, ``bench``, ``serve``) do not exist yet.  The B0
-recalibration is ``python -m wsunet_tpu_torch.train.bn_recalibrate``.
+the device (default CUDA; without a card a command exits with one line,
+and ``serve`` has no fallback to the CPU), and ``--fast-conv`` runs the
+U-Net's 3x3 convs through kernel B1 instead of cuDNN.  ``ws-eval --models
+OLS`` fits the OLS predictor on the covers, in the colour layouts for two
+or three ``--channels``.  ``simulate --method LSBr`` draws from torch
+generators seeded per image as the JAX CLI seeds its keys, so its stego
+pixels are not the JAX CLI's (HILLr's are).  pandas, PIL, matplotlib and
+seaborn are imported by the commands.  Every command runs under
+``utils.profiling.profile($WSUNET_PROFILE)`` and, with
+``WSUNET_DEBUG_NANS=1``, ``nan_check``.  ``bench`` belongs to the
+benchmark, not yet ported.  The B0 recalibration is ``python -m
+wsunet_tpu_torch.train.bn_recalibrate``.
 """
 
 import argparse
@@ -135,23 +151,74 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=json.loads, default={},
                    help='JSON config overrides, e.g. \'{"alpha":0.01}\'')
 
+    p = sub.add_parser("correlation", help="residual/change correlation")
+    _common(p)
+    p.add_argument("--model-dir", type=pathlib.Path, default=None)
+
+    p = sub.add_parser("error-boxes", help="AE boxplots bucketed by KB error")
+    _common(p)
+    p.add_argument("--model-dir", type=pathlib.Path, default=None)
+    p.set_defaults(split="split_te.csv")
+
+    p = sub.add_parser("contour", help="difference-image contours")
+    _common(p)
+    p.add_argument("--image", default="images/6.png")
+    p.add_argument("--model-dir", type=pathlib.Path, default=None)
+
+    p = sub.add_parser("saliency", help="U-Net gradient saliency grid")
+    _common(p)
+    p.add_argument("--image", default="images/6.png")
+    p.add_argument("--model-dir", type=pathlib.Path, default=WEIGHTS)
+    p.add_argument("--stego-method", default="LSBR")
+    p.add_argument("--points", type=json.loads,
+                   default=[[307, 10], [261, 64], [155, 381], [9, 25]])
+
+    p = sub.add_parser("init-dataset",
+                       help="build files.csv + split CSVs for a cover folder")
+    _common(p)
+    p.add_argument("--images-dir", default="images")
+    p.add_argument("--fractions", nargs=3, type=float, default=[.6, .2, .2])
+
     p = sub.add_parser("simulate", help="generate stego fixture directories")
     _common(p)
     p.add_argument("--method", choices=["LSBr", "HILLr"], default="LSBr")
     p.add_argument("--alphas", nargs="+", type=float,
                    default=[.01, .05, .1, .2, .4, 1.0])
+
+    p = sub.add_parser(
+        "serve", help="single-image WS estimation loop (batch-1 path)")
+    p.add_argument("images", nargs="*", type=pathlib.Path,
+                   help="image paths; with none given, one path per "
+                        "stdin line")
+    p.add_argument("--model-dir", type=pathlib.Path, default=WEIGHTS)
+    p.add_argument("--train-method", default="LSBR")
+    p.add_argument("--size", type=int, default=512,
+                   help="served image height/width (one serving shape)")
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--measure-latency", action="store_true",
+                   help="print the latency report (median, launch floor, "
+                        "net, streamed and serial img/s) and exit")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' to run without "
+                        "a card)")
+    p.add_argument("--fast-conv", action="store_true",
+                   help="run the U-Net's 3x3 convs through kernel B1")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     import os
+
+    from .utils.profiling import nan_check, profile
     try:
-        try:
-            return _dispatch(args)
-        finally:
-            from .data.pipeline import clear_device_cache
-            clear_device_cache()
+        with profile(os.environ.get("WSUNET_PROFILE")), \
+                nan_check(os.environ.get("WSUNET_DEBUG_NANS") == "1"):
+            try:
+                return _dispatch(args)
+            finally:
+                from .data.pipeline import clear_device_cache
+                clear_device_cache()
     except (UserError, FileNotFoundError) as e:
         # a missing model or data directory is the user's, not a bug: one
         # line; WSUNET_DEBUG=1 keeps the traceback
@@ -164,8 +231,9 @@ def _dispatch(args):
     cmd = args.command
     # commands that do not walk the catalog refuse a row selection instead
     # of ignoring it
-    if (args.split or args.take) and cmd in ("train-unet", "train-b0",
-                                             "simulate"):
+    if (getattr(args, "split", None) or getattr(args, "take", None)) and \
+            cmd in ("contour", "saliency", "simulate", "train-unet",
+                    "train-b0", "init-dataset"):
         raise SystemExit(f"{cmd} does not support --split/--take")
     if cmd == "filters-eval":
         from .ws import filters_run
@@ -218,9 +286,90 @@ def _dispatch(args):
         exp = train(args.config, data_path=args.data,
                     output_dir=args.output_dir, device=args.device)
         print(f"experiment saved to {exp}")
+    elif cmd == "correlation":
+        from .analyses import run_correlation
+        unet = ("dropout", "LSBR", "HILLR") if args.model_dir else ()
+        res, agg = run_correlation(
+            args.data, model_dir=args.model_dir, unet_methods=unet,
+            split=args.split, take_num_images=args.take,
+            batch_size=args.batch_size, fast_conv=args.fast_conv,
+            device=args.device)
+        out = args.results / "estimation" / "correlation.csv"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        agg.to_csv(out)
+        print(f"output saved to {out}")
+    elif cmd == "error-boxes":
+        from .analyses import run_error_boxes
+        unet = (("dropout", "UNet_l1"), ("LSBR", "UNet_l1ws")) \
+            if args.model_dir else ()
+        out = args.results / "prediction" / "ae_boxes_3.csv"
+        run_error_boxes(args.data, model_dir=args.model_dir,
+                        split=args.split, unet_models=unet, outfile=out,
+                        batch_size=args.batch_size, fast_conv=args.fast_conv,
+                        device=args.device)
+        print(f"output saved to {out}")
+    elif cmd == "contour":
+        from .analyses import difference_image, plot_contour
+        fname = args.data / args.image
+        outdir = args.results / "prediction"
+        models = ["KB"] + (["unet"] if args.model_dir else [])
+        for model in models:
+            d = difference_image(
+                fname, model_name="KB" if model == "KB" else "UNet",
+                model_dir=args.model_dir, fast_conv=args.fast_conv,
+                device=args.device)
+            print("saved", plot_contour(fname, d, model, outdir))
+    elif cmd == "saliency":
+        from .analyses.saliency import plot_saliency_grid, render_dots
+        out = (args.results / "prediction" /
+               f"saliency_{args.stego_method}.png")
+        plot_saliency_grid(args.data / args.image, args.model_dir,
+                           args.stego_method,
+                           [tuple(p) for p in args.points], out,
+                           fast_conv=args.fast_conv, device=args.device)
+        print(f"output saved to {out}")
+        dots = render_dots(args.data / args.image,
+                           args.results / "prediction" /
+                           "saliency_image_dots.png", device=args.device)
+        print(f"output saved to {dots}")
+    elif cmd == "init-dataset":
+        from .data.init_dataset import init_dataset
+        df = init_dataset(args.data, images_dir=args.images_dir,
+                          split_fractions=tuple(args.fractions))
+        print(f"catalogued {len(df)} covers under {args.data}")
     elif cmd == "simulate":
         _cmd_simulate(args)
+    elif cmd == "serve":
+        _cmd_serve(args)
     return 0
+
+
+def _cmd_serve(args):
+    """One image at a time through ``serve.UNetWSServer``: one JSON line
+    an image on stdout (``{"name", "beta_hat", "l1"}``, or ``{"name",
+    "error"}`` without stopping).  Paths given as arguments are streamed
+    (``serve.stream_paths``); with none, each stdin line is answered
+    before the next is read (``serve.serve_lines``)."""
+    import torch
+
+    from .serve import load_server, measure_latency, serve_lines, stream_paths
+
+    dtype = getattr(torch, args.dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise UserError(f"--dtype {args.dtype} is not a torch float type")
+    server, name = load_server(args.model_dir, args.train_method, args.size,
+                               dtype, fast_conv=args.fast_conv,
+                               device=args.device)
+    print(f"serve: {args.train_method}/{name} at {args.size}x{args.size} "
+          f"({args.dtype}, fast_conv={args.fast_conv}, {server.device})",
+          file=sys.stderr)
+    if args.measure_latency:
+        print(json.dumps(measure_latency(server)))
+        return
+    outs = (stream_paths(server, [str(p) for p in args.images])
+            if args.images else serve_lines(server, sys.stdin))
+    for out in outs:
+        print(json.dumps(out), flush=True)
 
 
 def _ws_sweep(args):

@@ -9,7 +9,8 @@ hash covers the source and the flags, so an edited source never loads a
 stale library.  ``nvcc`` is taken from ``$CUDA_HOME/bin``, else
 ``/usr/local/cuda/bin``, else ``PATH``.  A missing ``nvcc`` or a failed
 build raises with nvcc's output: there is no fallback to another
-implementation.
+implementation.  Under ``utils.profiling.log_compiles`` each build is
+logged with its command and seconds.
 
 Nothing here runs at import; the CPU tests import this module on machines
 without ``nvcc``.
@@ -23,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils import profiling
 
 # the kernels' sources: B1 (reflect_conv3x3: variants direct and fma;
 # reflect_conv3x3_wgmma: variant wgmma) and B2 (ws_fused)
@@ -99,8 +102,9 @@ def load_all(names) -> dict:
                     f"\n{' '.join(cmd)}\n{log}")
                 continue
             os.replace(tmp, so)
-            _loaded[name] = (ctypes.CDLL(str(so)), time.perf_counter() - t0,
-                             log)
+            seconds = time.perf_counter() - t0
+            _loaded[name] = (ctypes.CDLL(str(so)), seconds, log)
+            profiling.note_compile(name, cmd, seconds)
         if failed:
             raise RuntimeError("\n".join(failed))
         return {name: _loaded[name][0] for name in names}

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import disable_tf32
+from ..utils import profiling
 
 # Launches of the CUDA kernels since the last reset (one per wrapper call
 # on a CUDA tensor; calls that take the plain version do not count), in
@@ -162,6 +163,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             f"B1 {variant} launch failed: CUDA error {err} ({msg})")
     launches += 1
     launches_by_variant[variant] += 1
+    profiling.check_output(out, f"B1 ({variant})")
     return out
 
 

@@ -34,6 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .filters import NAMED_FILTERS_2D
 
 # Launches of the CUDA kernel since the last reset (one per wrapper call
@@ -190,6 +191,7 @@ def _launch(x_u8: torch.Tensor, kernel_name: str,
         raise RuntimeError(f"B2 launch failed: CUDA error {err} "
                            f"({lib.ws_fused_error_string(err).decode()})")
     launches += 1
+    profiling.check_output(out, "B2")
     return out
 
 

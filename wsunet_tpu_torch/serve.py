@@ -17,6 +17,7 @@ the same way as the serving step.
 
 import collections
 import copy
+import pathlib
 import time
 import typing
 
@@ -112,6 +113,26 @@ class UNetWSServer:
             yield q.popleft().result()
 
 
+def load_server(model_dir, train_method: str = "LSBR", size: int = 512,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                fast_conv=False, device=None
+                ) -> typing.Tuple[UNetWSServer, str]:
+    """The server of ``serve``: the trained run of ``train_method`` found
+    by name under ``model_dir`` (``weights/unet``), loaded on ``device``
+    (None = CUDA) and served at ``size`` in ``compute_dtype``; returns it
+    with the run's name."""
+    from .utils.registry import get_model_name
+    from .ws.unet_eval import load_pretrained_unet
+
+    dev = resolve_device(device)
+    name = get_model_name(model_dir, train_method)
+    model, _ = load_pretrained_unet(
+        pathlib.Path(model_dir) / train_method, name,
+        compute_dtype=compute_dtype, fast_conv=fast_conv, device=dev)
+    return UNetWSServer(model, size=size, compute_dtype=compute_dtype,
+                        device=dev), name
+
+
 def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
                  reader: typing.Callable = None, threads: int = 2,
                  depth: int = 4) -> typing.Iterator[dict]:
@@ -133,7 +154,7 @@ def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
             raise ValueError(
                 f"expected {server.size}x{server.size}, got "
                 f"{img.shape[0]}x{img.shape[1]} (one serving shape; "
-                "restart with another size to change)")
+                "restart with --size to change)")
         return img
 
     def error(name, e):
@@ -172,6 +193,35 @@ def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
                     continue
                 beta, l1 = pending.result()
                 yield {"name": name, "beta_hat": beta, "l1": l1}
+
+
+def serve_lines(server: UNetWSServer, lines: typing.Iterable[str],
+                reader: typing.Callable = None) -> typing.Iterator[dict]:
+    """The serial serve loop of ``serve`` with no paths: one path a line,
+    each answered before the next line is read (a pipelined loop would
+    hold answers back behind later lines).  Yields ``{"name", "beta_hat",
+    "l1"}`` or, for an image that fails or has the wrong shape, ``{"name",
+    "error"}``, and never stops on one.  The default reader decodes with
+    PIL, imported when it is first called."""
+    if reader is None:
+        reader = imread_gray_u8
+    for path in (line.strip() for line in lines):
+        if not path:
+            continue
+        try:
+            img = reader(path)
+            if img.shape != (server.size, server.size):
+                raise ValueError(
+                    f"expected {server.size}x{server.size}, got "
+                    f"{'x'.join(map(str, img.shape))} (one serving shape; "
+                    "restart with --size to change)")
+            beta, l1 = server.predict(img)
+            out = {"name": path, "beta_hat": beta, "l1": l1}
+        except Exception as e:  # noqa: BLE001 -- the loop's contract:
+            # a failed request is answered inline, the next one is served
+            out = {"name": path,
+                   "error": f"{type(e).__name__}: {str(e)[:300]}"}
+        yield out
 
 
 def _sync(device: torch.device) -> None:

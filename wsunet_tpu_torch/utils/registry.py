@@ -2,8 +2,9 @@
 ``wsunet_tpu/utils/registry.py``).
 
 ``<model_dir>/<stego_method>/<run_name>/config.json`` beside the run's
-``best.npz`` (where the JAX package looks for ``model/best``).  pandas is
-imported inside the functions.
+``best.npz`` (where the JAX package looks for ``model/best``).
+``get_model_name`` reads the configs with json alone; ``scan_models``
+imports pandas inside the function.
 """
 
 import glob
@@ -15,10 +16,8 @@ from ..train.checkpoint import PARAMS_FILE
 from .errors import UserError
 
 
-def scan_models(model_dir: pathlib.Path, stego_method: str):
-    """Config rows (a DataFrame) of the runs that have a ``best.npz``."""
-    import pandas as pd
-
+def _scan_rows(model_dir: pathlib.Path, stego_method: str) -> list:
+    """Config rows (dicts) of the runs that have a ``best.npz``."""
     model_path = pathlib.Path(model_dir) / stego_method
     rows = []
     for cfg_file in map(pathlib.Path,
@@ -44,23 +43,30 @@ def scan_models(model_dir: pathlib.Path, stego_method: str):
             "lsbr_reference": config.get("lsbr_reference", False),
             "no_stem_stride": config.get("no_stem_stride", False),
         })
-    return pd.DataFrame(rows)
+    return rows
+
+
+def scan_models(model_dir: pathlib.Path, stego_method: str):
+    """Config rows (a DataFrame) of the runs that have a ``best.npz``."""
+    import pandas as pd
+
+    return pd.DataFrame(_scan_rows(model_dir, stego_method))
 
 
 def get_model_name(model_dir: pathlib.Path, stego_method: str,
                    **filters: typing.Any) -> str:
     """The one run name matching the filters; ``UserError`` when none or
-    several match."""
-    df = scan_models(model_dir, stego_method)
-    if len(df):
-        df = df[df.stego_method == stego_method]
-        for key, value in filters.items():
-            if value is None:
-                df = df[df[key].isna()]
-            else:
-                df = df[df[key] == value]
-    if len(df) < 1:
+    several match.  A filter of None matches a missing value.  Needs no
+    pandas, so the card's machine finds runs by name too."""
+    rows = [r for r in _scan_rows(model_dir, stego_method)
+            if r["stego_method"] == stego_method]
+    for key, value in filters.items():
+        if value is None:
+            rows = [r for r in rows if r[key] is None]
+        else:
+            rows = [r for r in rows if r[key] == value]
+    if len(rows) < 1:
         raise UserError(f"no model for {stego_method=} {filters} found")
-    if len(df) > 1:
+    if len(rows) > 1:
         raise UserError(f"multiple models for {stego_method=} {filters} found")
-    return df["model_name"].iloc[0]
+    return rows[0]["model_name"]
