@@ -144,6 +144,28 @@ kernel against its plain PyTorch version:
    B1's kernels, and ``nan_check`` raises ``FloatingPointError`` at a NaN
    made by a torch op on the card and at B1's output.
 
+14. the parallel path (``wsunet_tpu_torch.parallel``, on
+   ``torch.distributed``): (a) a one-rank nccl group in this process:
+   the KB and KB-w sweeps (B2), the fast-conv U-Net sweep (B1) and the
+   strided B0 sweep over the 64 golden covers as ``.npy`` files, one
+   corrupt, against the golden numbers, with every B1 and B2 launch held
+   to its plain version and counted; ``ws_attack_spatial`` at 8x512x512
+   (KB x weighted {0, 1, -1}) against B2 and the plain attack;
+   ``infer_unet_spatial`` (trained ``unet_2``, f32, 4x512x512) against
+   ``infer_unet``; the golden ``train_unet`` step and three B0 golden
+   steps (live in float64, live in f32, the committed recipe in f32)
+   against the same steps without a group, the f32 ones against JAX's
+   f32 steps too (1e-3); (b) two gloo ranks on the card (this script
+   again, ``--parallel-rank R 2 JOB``), each holding the same drive to
+   (a): sweep rows bit for bit (B0's at rtol 1e-6), the spatial paths and
+   the steps at (a)'s bounds, gloo taking CUDA tensors as they lie; (c)
+   times, host clock: ``ws_attack_spatial`` at 128x512x512 beside B2 and
+   the plain attack, ``infer_unet_spatial`` beside ``infer_unet`` at
+   4x512x512 in f32 and bf16, the three sweeps' img/s over 128 512x512
+   ``.npy`` covers at batch 8 (the CLI's default) at one and two ranks,
+   and the trainer steps at 512x512 without a group and on the one-rank
+   group, and on each of the two gloo ranks.
+
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits with code 2 and
@@ -1914,6 +1936,606 @@ def analyses_path(smi_line: str) -> dict:
     return {"b1_launches": b1_launches}
 
 
+# ---- phase 14: the parallel path (wsunet_tpu_torch.parallel)
+PARALLEL_JOB = REPO / "build" / "smoke_parallel"
+# the two gloo ranks' own limit: a rank that hangs fails the phase
+RANK_TIMEOUT = 300
+# B0's rows of a rank-sharded sweep against the one-process rows: B0's
+# kernels need not be invariant to an image's place in its batch (on the
+# CPU they are not: tests/test_torch_parallel.py)
+B0_SHARD_RTOL = 1e-6
+# infer_unet_spatial against infer_unet, 0..255 (tests/test_multichip.py)
+SPATIAL_UNET_ATOL = 1e-3
+# phase 14 (c)'s sweeps: 128 512x512 covers as .npy files, at the CLI's
+# default batch
+SWEEP_DIR, SWEEP_N, SWEEP_BATCH = "sweep512", 128, 8
+# an f32 B0 step on a group against the step without one and against
+# JAX's f32 step: loss rel, logits, gradients (phase 12's f32 bound)
+B0_F32 = 1e-3
+
+
+def checking_b2(calls: list, where: str):
+    """A stand-in for ``fused_ws._launch`` that holds every launch against
+    B2's plain version on the same input (phase 2's bounds) and records
+    max |err| in ``calls``."""
+    from wsunet_tpu_torch.ops import fused_ws
+
+    launch = fused_ws._launch
+
+    def checked_launch(x_u8, kernel_name, weighted):
+        out = launch(x_u8, kernel_name, weighted)
+        want = fused_ws.ws_attack_fused_plain(x_u8, kernel_name, weighted)
+        err = float((out - want).abs().max()) if out.numel() else 0.0
+        calls.append(err)
+        check(torch.allclose(out, want, rtol=RTOL, atol=ATOL),
+              f"B2 on {where}, {kernel_name} weighted={weighted} "
+              f"{tuple(x_u8.shape)}: max |err| {err}")
+        return out
+    return checked_launch
+
+
+def golden_draws(z, prefix: str, dev) -> dict:
+    return {k[len(prefix):]: (torch.from_numpy(z[k]).long()
+                              if z[k].dtype.kind == "i"
+                              else torch.from_numpy(z[k])).to(dev)
+            for k in z.files if k.startswith(prefix)}
+
+
+def _block(mesh, a: np.ndarray, dev) -> torch.Tensor:
+    """This rank's block of a batch on ``dev`` (the whole batch without a
+    mesh): what a data-parallel step takes."""
+    t = torch.from_numpy(a)
+    return (t if mesh is None else t[mesh.block(len(t))]).to(dev)
+
+
+def unet_golden_step(mesh, dev) -> dict:
+    """One AdamW step of the committed LSBR recipe on JAX's golden draws
+    (B=4, crop 64), data parallel over ``mesh`` (None: no group): the
+    loss and the gradients, in the Flax layout."""
+    from wsunet_tpu_torch.models import (flax_params_from_unet_state_dict,
+                                         get_model, unet_state_dict_from_flax)
+    from wsunet_tpu_torch.train import get_loss, load_params
+    from wsunet_tpu_torch.train.checkpoint import flatten_tree
+    from wsunet_tpu_torch.train.train_unet import _make_step, make_optimizer
+
+    z = np.load(GOLDEN_TRAIN)
+    cfg = json.loads(str(z["config"]))
+    model = get_model(cfg["network"])
+    model.load_state_dict(unet_state_dict_from_flax(load_params(
+        REPO / "weights" / "unet" / "LSBR" / str(z["run"]))[0]))
+    model.to(dev)
+    fn = get_loss(cfg["loss"], per_image=True,
+                  loss_lambda=cfg["loss_lambda"])
+    opt, sch = make_optimizer(cfg, cfg["steps_per_epoch"],
+                              model.parameters())
+    step = _make_step(model, fn, opt, sch, cfg["stego_method"],
+                      cfg["alpha"], crop=cfg["crop"], augment=cfg["augment"],
+                      cover_fraction=cfg["cover_fraction"], mesh=mesh)[0]
+    loss = step(_block(mesh, z["pixels"][0], dev),
+                _block(mesh, z["mask"][0], dev),
+                draws=golden_draws(z, "draws/0/", dev))
+    grads = flax_params_from_unet_state_dict(
+        {k: p.grad for k, p in model.named_parameters()})
+    return {"loss": float(loss), "grad": flatten_tree(grads)}
+
+
+# phase 14's B0 golden steps: (live, dtype); the live float64 step runs on
+# the table of JAX's jitted preprocessing, as JAX's float64 step
+B0_STEPS = {"b0_live64": (True, torch.float64),
+            "b0_live32": (True, torch.float32),
+            "b0_recipe32": (False, torch.float32)}
+
+
+def b0_golden_step(mesh, dev, live: bool, dtype) -> dict:
+    """One B0 step on JAX's golden draws (B=2 pairs), data parallel over
+    ``mesh``: the committed recipe (``freeze_bn``, its first step) or,
+    with ``live``, the step with batch statistics, head dropout and the
+    running update, the model in ``dtype``: loss, logits, gradients and
+    running statistics."""
+    from wsunet_tpu_torch.train.train_b0 import _make_steps
+    from wsunet_tpu_torch.train.train_unet import make_optimizer
+
+    z = np.load(GOLDEN_B0_TRAIN)
+    cfg = {**_b0_config(str(z["run"])), "freeze_bn": not live}
+    model = _b0_model(cfg, str(z["run"]), dev, dtype=dtype)
+    opt, sch = make_optimizer(cfg, cfg["steps_per_epoch"],
+                              model.parameters())
+    step = _make_steps(model, opt, sch, cfg, mesh=mesh)[0]
+    if dtype == torch.float64:
+        lut = torch.from_numpy(z["live/preprocess_lut"]).to(dev)
+        step.sampler.preprocess = lambda x_u8: lut[x_u8.long()][:, None]
+    prefix, i = ("live/draws/", -1) if live else ("draws/0/", 0)
+    loss, logits, _ = step(_block(mesh, z["pixels"][i], dev),
+                           _block(mesh, z["mask"][i], dev),
+                           draws=golden_draws(z, prefix, dev))
+    grads, stats = _b0_grads(model)
+    return {"loss": float(loss), "logits": logits.double().cpu().numpy(),
+            "grad": grads, "stats": stats}
+
+
+def parallel_work(job: pathlib.Path, mesh) -> dict:
+    """What phase 14 drives under a process group (the smoke's own one-rank
+    nccl group, or each of two gloo ranks): the three sweeps over the
+    ``.npy`` covers of ``job`` (B2 on KB and KB-w, B1 in the fast-conv
+    U-Net, B0), ``ws_attack_spatial`` at 8x512x512 and
+    ``infer_unet_spatial`` at 4x512x512, and the golden steps of each
+    trainer.
+    Every B1 and B2 launch is held against its plain version; their
+    launch counts cover this drive alone."""
+    from wsunet_tpu_torch.data import pipeline
+    from wsunet_tpu_torch.detect.b0_eval import get_b0_detector, score_sweep
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.parallel.spatial import (infer_unet_spatial,
+                                                   ws_attack_spatial)
+    from wsunet_tpu_torch.ws import (attack_batches, load_pretrained_unet,
+                                     predict_sweep)
+
+    from wsunet_tpu_torch.ops import NAMED_FILTERS_2D
+
+    kb = NAMED_FILTERS_2D["KB"]
+    dev = torch.device("cuda")
+    names = sorted(f"images/{p.name}" for p in (job / "images").glob("*"))
+    run = str(np.load(GOLDEN)["run"])
+    lsbr = REPO / "weights" / "unet" / "LSBR"
+    fast = load_pretrained_unet(lsbr, run, fast_conv=True)[0]
+    f32 = load_pretrained_unet(lsbr, run)[0]
+    detect = get_b0_detector(REPO / "weights" / "b0" / "LSBR",
+                             B0_RUNS["strided"])
+    x8 = torch.from_numpy(smooth_covers(8, 512, seed=61)).to(dev)
+    x4 = torch.from_numpy(smooth_covers(4, 512, seed=62)).to(dev).float()
+    out = {"rank": mesh.rank, "world": mesh.world}
+    b1_calls, b2_calls = [], []
+    launch1, launch2 = fused_reflect_conv._launch, fused_ws._launch
+    fused_reflect_conv._launch = checking_b1(b1_calls, "the parallel path")
+    fused_ws._launch = checking_b2(b2_calls, "the parallel path")
+    pipeline.clear_decode_cache()
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    try:
+        for det in ("KB", "KB-w"):
+            w = 1 if det == "KB-w" else 0
+            out[f"sweep/{det}"] = pipeline.sweep_batches(
+                job, names, lambda px, w=w: (torch.from_numpy(attack_batches(
+                    [px], kernel_name="KB", weighted=w)),), 8,
+                reader=np.load).reshape(-1)
+        out["sweep/beta"], out["sweep/l1"] = predict_sweep(
+            job, names, fast, 8, reader=np.load)
+        out["sweep/b0"] = score_sweep(job, names, detect, 8, reader=np.load)
+        for w in WEIGHTS:
+            out[f"spatial/{w}"] = ws_attack_spatial(
+                x8, kb, weighted=w).cpu().numpy()
+        out["unet_spatial"] = infer_unet_spatial(f32, x4).cpu().numpy()
+    finally:
+        fused_reflect_conv._launch, fused_ws._launch = launch1, launch2
+    out["b1_launches"] = dict(fused_reflect_conv.launches_by_variant)
+    out["b2_launches"] = fused_ws.launches
+    check(len(b1_calls) == sum(out["b1_launches"].values()) and
+          len(b2_calls) == out["b2_launches"],
+          "a launch on the parallel path escaped the check")
+    out["b1_max_err"] = max(e for _, e in b1_calls)
+    out["b2_max_err"] = max(b2_calls)
+    out["unet_step"] = unet_golden_step(mesh, dev)
+    for kind, (live, dtype) in B0_STEPS.items():
+        out[kind] = b0_golden_step(mesh, dev, live, dtype)
+    pipeline.clear_decode_cache()
+    return out
+
+
+def host_ms(fn, mesh, reps: int) -> float:
+    """Host-clock ms of one call of ``fn`` (a warm-up call first), every
+    rank in step: a barrier and a synchronise around the timed calls."""
+    fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def parallel_times(job: pathlib.Path, mesh, baselines: bool) -> dict:
+    """Phase 14 (c) on this rank, host clock: ``ws_attack_spatial`` at
+    128x512x512, ``infer_unet_spatial`` at 4x512x512 in f32 and bf16
+    (with ``baselines``, beside B2's and the plain attack's time on the
+    same batch and ``infer_unet``'s), and the three sweeps' img/s over the
+    128 512x512 ``.npy`` covers of ``job/SWEEP_DIR`` at batch
+    ``SWEEP_BATCH`` (their decodes cached by a first pass; at one rank
+    the batches stay on the card after it, under ranks the device cache
+    is off and every pass uploads)."""
+    from wsunet_tpu_torch.data import pipeline
+    from wsunet_tpu_torch.detect.b0_eval import get_b0_detector, score_sweep
+    from wsunet_tpu_torch.ops import fused_ws, ws_attack
+    from wsunet_tpu_torch.parallel.spatial import (infer_unet_spatial,
+                                                   ws_attack_spatial)
+    from wsunet_tpu_torch.ws import (attack_batches, infer_unet,
+                                     load_pretrained_unet, predict_sweep)
+
+    from wsunet_tpu_torch.ops import NAMED_FILTERS_2D
+
+    kb = NAMED_FILTERS_2D["KB"]
+    dev = torch.device("cuda")
+    t = {}
+    x128 = torch.from_numpy(smooth_covers(128, 512, seed=63)).to(dev)
+    t["ws_attack_spatial_ms"] = host_ms(
+        lambda: ws_attack_spatial(x128, kb), mesh, 10)
+    if baselines:
+        t["b2_ms"] = host_ms(
+            lambda: fused_ws.ws_attack_fused(x128, "KB", 0), mesh, 10)
+        t["plain_ms"] = host_ms(
+            lambda: ws_attack(x128, pixel_kernel=kb), mesh, 5)
+    del x128
+    x4 = torch.from_numpy(smooth_covers(4, 512, seed=64)).to(dev).float()
+    run = str(np.load(GOLDEN)["run"])
+    lsbr = REPO / "weights" / "unet" / "LSBR"
+    for dtype in (torch.float32, torch.bfloat16):
+        m = load_pretrained_unet(lsbr, run, compute_dtype=dtype)[0]
+        tag = str(dtype)[6:]
+        t[f"unet_spatial_{tag}_img_s"] = 4e3 / host_ms(
+            lambda: infer_unet_spatial(m, x4), mesh, 5)
+        if baselines:
+            t[f"unet_{tag}_img_s"] = 4e3 / host_ms(
+                lambda: infer_unet(m, x4), mesh, 5)
+    names = sorted(f"{SWEEP_DIR}/{p.name}"
+                   for p in (job / SWEEP_DIR).glob("*"))
+    fast = load_pretrained_unet(lsbr, run, fast_conv=True)[0]
+    detect = get_b0_detector(REPO / "weights" / "b0" / "LSBR",
+                             B0_RUNS["strided"])
+    B = SWEEP_BATCH
+    sweeps = {
+        "KB": lambda: pipeline.sweep_batches(
+            job, names, lambda px: (torch.from_numpy(attack_batches(
+                [px], kernel_name="KB")),), B, reader=np.load),
+        "unet_fast_conv": lambda: predict_sweep(job, names, fast, B,
+                                                reader=np.load),
+        "b0": lambda: score_sweep(job, names, detect, B, reader=np.load)}
+    for label, sweep in sweeps.items():
+        t[f"sweep_{label}_img_s"] = len(names) * 1e3 / host_ms(sweep, mesh,
+                                                               3)
+    pipeline.clear_decode_cache()
+    return t
+
+
+def parallel_rank(rank: int, world: int, job: pathlib.Path) -> int:
+    """One of phase 14's two gloo ranks on the card (started by
+    ``parallel_path`` as ``chip_smoke.py --parallel-rank R W JOB``): once
+    ``JOB/go`` exists, the drive of ``parallel_work`` and the times,
+    pickled to ``JOB/rank<R>.pkl``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from wsunet_tpu_torch import detect, train, ws  # noqa: F401
+    from wsunet_tpu_torch._device import disable_tf32
+    from wsunet_tpu_torch.ops import _cuda_build
+    from wsunet_tpu_torch.parallel import get_mesh
+    from wsunet_tpu_torch.parallel.distributed import distributed_init
+
+    # start-up (imports, the card, the kernels built in phase 2) while
+    # the parent runs (a); the drive waits for its go
+    disable_tf32()
+    torch.zeros(1, device="cuda")
+    _cuda_build.load_all(_cuda_build.SOURCES)
+    deadline = time.monotonic() + RANK_TIMEOUT
+    while not (job / "go").exists():
+        check(time.monotonic() < deadline, "phase 14 never gave the go")
+        time.sleep(0.05)
+    check(distributed_init(init_method=f"file://{job / 'rdzv2'}",
+                           world_size=world, rank=rank, backend="gloo"),
+          "the two-rank group did not start")
+    try:
+        mesh = get_mesh()
+        out = parallel_work(job, mesh)
+        out["times"] = parallel_times(job, mesh, baselines=False)
+        out["steps"] = step_times(mesh, baselines=False)
+    finally:
+        dist.destroy_process_group()
+    with open(job / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _rel_max(got: dict, want: dict) -> float:
+    """max over tensors of max|d| / max|want|."""
+    return max(float(np.abs(got[k] - want[k]).max() /
+                     max(np.abs(want[k]).max(), 1e-30)) for k in want)
+
+
+def step_times(mesh, baselines: bool) -> dict:
+    """Phase 14 (c): the U-Net LSBR recipe (512x512, B=4, f32) and the
+    strided B0 recipe (512x512, B=2 pairs, f32) step ms on ``mesh``, each
+    rank on its block of the batch, host clock (``host_ms``: 5 steps
+    after 2 warm-up steps); with ``baselines`` beside the step without a
+    group, in turns (none, mesh, mesh, none)."""
+    from wsunet_tpu_torch.models import get_model, init_unet
+    from wsunet_tpu_torch.train import get_loss
+    from wsunet_tpu_torch.train.train_b0 import _make_steps
+    from wsunet_tpu_torch.train.train_unet import _make_step, make_optimizer
+
+    dev = torch.device("cuda")
+    r = _LSBR_RECIPE
+
+    def unet_step(m):
+        model = init_unet(get_model("unet_2"), 0).to(dev)
+        opt, sch = make_optimizer(r, 100, model.parameters())
+        return _make_step(model, get_loss(r["loss"], per_image=True,
+                                          loss_lambda=r["loss_lambda"]),
+                          opt, sch, r["stego_method"], r["alpha"],
+                          crop=r["crop"], augment=r["augment"], mesh=m)[0]
+
+    def b0_step(m):
+        cfg = _b0_config(B0_RUNS["strided"], compute_dtype="float32")
+        model = _b0_model(cfg, B0_RUNS["strided"], dev)
+        opt, sch = make_optimizer(cfg, cfg["steps_per_epoch"],
+                                  model.parameters())
+        return _make_steps(model, opt, sch, cfg, mesh=m)[0]
+
+    rows = {}
+    turns = ("none", "mesh", "mesh", "none") if baselines else ("mesh",)
+    for label, make, B in (("unet LSBR f32, B=4", unet_step, 4),
+                           ("B0 strided f32, B=2 pairs", b0_step, 2)):
+        covers = smooth_covers(B, 512, seed=71)
+        ms = {}
+        for which in turns:
+            m = mesh if which == "mesh" else None
+            step = make(m)
+            x = _block(m, covers, dev)
+            mask = torch.ones(len(x), dtype=torch.bool, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            step(x, mask, gen)
+            ms.setdefault(which, []).append(host_ms(
+                lambda: step(x, mask, gen), mesh, 5))
+            del step
+            torch.cuda.empty_cache()
+        rows[label] = {k: float(np.mean(v)) for k, v in ms.items()}
+    return rows
+
+
+def parallel_path(smi_line: str) -> dict:
+    """Phase 14: the parallel path.  (a) a one-rank nccl group in this
+    process: the three sweeps, the spatial paths and one step of each
+    trainer, held against the golden numbers, B2, B1, the plain attack,
+    ``infer_unet`` and the steps without a group; (b) two gloo ranks on
+    the card (two processes of this script): the same, each held to (a);
+    (c) times, as measurements."""
+    gold, gold_b0 = np.load(GOLDEN), np.load(GOLDEN_B0)
+    job = PARALLEL_JOB
+    shutil.rmtree(job, ignore_errors=True)
+    names = write_npy(job, "images", gold["pixels"][0])
+    write_npy(job, SWEEP_DIR, smooth_covers(SWEEP_N, 512, seed=65))
+    bad = 3
+    (job / names[bad]).write_bytes(b"not an array")
+    keep = np.arange(len(names)) != bad
+    b0_label = str(gold_b0["labels"][list(gold_b0["runs"]).index(
+        B0_RUNS["strided"])])
+    # the two gloo ranks of (b) start up now and wait for (a) to end
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--parallel-rank",
+         str(r), "2", str(job)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        return _parallel_path(smi_line, job, names, bad, keep, b0_label,
+                              procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _parallel_path(smi_line, job, names, bad, keep, b0_label,
+                   procs) -> dict:
+    """The body of ``parallel_path``, with the two ranks started."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from wsunet_tpu_torch.ops import NAMED_FILTERS_2D, fused_ws, ws_attack
+    from wsunet_tpu_torch.parallel import get_mesh
+    from wsunet_tpu_torch.parallel.distributed import distributed_init
+    from wsunet_tpu_torch.ws import infer_unet, load_pretrained_unet
+
+    kb = NAMED_FILTERS_2D["KB"]
+    dev = torch.device("cuda")
+    gold, gold_b0 = np.load(GOLDEN), np.load(GOLDEN_B0)
+    t0 = time.perf_counter()
+
+    # (a) one rank under nccl, in this process
+    check(distributed_init(init_method=f"file://{job / 'rdzv1'}",
+                           world_size=1, rank=0, backend="nccl") is False
+          and dist.get_backend() == "nccl", "the one-rank nccl group")
+    try:
+        mesh = get_mesh()
+        a = parallel_work(job, mesh)
+        times = {"world1": parallel_times(job, mesh, baselines=True)}
+        steps = {"world1": step_times(mesh, baselines=True)}
+    finally:
+        dist.destroy_process_group()
+    n_batches = len(names) // 8
+    check(a["b2_launches"] == 2 * n_batches,
+          f"B2 launches on the one-rank sweeps: {a['b2_launches']}")
+    check(a["b1_launches"] == {"wgmma": 0, "direct": n_batches,
+                               "fma": 9 * n_batches},
+          f"B1 launches on the one-rank U-Net sweep: {a['b1_launches']}")
+    for det in ("KB", "KB-w"):
+        got = a[f"sweep/{det}"]
+        check(np.isnan(got[bad]) and np.allclose(
+            got[keep], gold[f"beta/{det}"][0][keep], rtol=RTOL, atol=ATOL),
+            f"parallel {det} sweep != JAX, or no NaN row")
+    d_beta = float(np.abs(a["sweep/beta"][keep] -
+                          gold["beta/UNet"][0][keep]).max())
+    d_l1 = float((np.abs(a["sweep/l1"][keep] - gold["l1"][0][keep]) /
+                  gold["l1"][0][keep]).max())
+    d_p = float(np.abs(a["sweep/b0"][keep] -
+                       gold_b0[f"prob/{b0_label}"][0][keep]).max())
+    check(np.isnan(a["sweep/beta"][bad]) and np.isnan(a["sweep/b0"][bad])
+          and d_beta <= 1e-5 and d_l1 <= 1e-4 and d_p <= B0_ATOL,
+          f"parallel U-Net / B0 sweeps != JAX ({d_beta}, {d_l1}, {d_p})")
+    print(f"parallel path (a), one-rank nccl group: sweeps over "
+          f"{len(names)} .npy covers (one corrupt: NaN rows): KB, KB-w "
+          f"within rtol {RTOL}, atol {ATOL} of JAX; U-Net on B1 max |d "
+          f"beta| {d_beta:.3e}, rel d l1 {d_l1:.3e}; B0 {b0_label} max |d "
+          f"P| {d_p:.3e}; B2 launches {a['b2_launches']} (max |err| "
+          f"{a['b2_max_err']:.3e}), B1 launches "
+          f"{json.dumps(a['b1_launches'])} (max |err| "
+          f"{a['b1_max_err']:.3e}), each held to its plain version")
+    x8 = torch.from_numpy(smooth_covers(8, 512, seed=61)).to(dev)
+    for w in WEIGHTS:
+        fused = fused_ws.ws_attack_fused(x8, "KB", w).cpu().numpy()
+        plain = ws_attack(x8, pixel_kernel=kb,
+                          weighted=w).cpu().numpy()
+        got = a[f"spatial/{w}"]
+        check(np.allclose(got, fused, rtol=RTOL, atol=ATOL) and
+              np.allclose(got, plain, rtol=RTOL, atol=ATOL),
+              f"ws_attack_spatial weighted={w} != B2 / plain: "
+              f"{np.abs(got - fused).max()}, {np.abs(got - plain).max()}")
+    f32 = load_pretrained_unet(REPO / "weights" / "unet" / "LSBR",
+                               str(gold["run"]))[0]
+    x4 = torch.from_numpy(smooth_covers(4, 512, seed=62)).to(dev).float()
+    d_sp = float(np.abs(a["unet_spatial"] -
+                        infer_unet(f32, x4).cpu().numpy()).max())
+    check(d_sp <= SPATIAL_UNET_ATOL,
+          f"infer_unet_spatial != infer_unet: {d_sp}")
+    print(f"parallel path (a): ws_attack_spatial 8x512x512, KB x weighted "
+          f"{WEIGHTS}, within rtol {RTOL}, atol {ATOL} of B2 and of the "
+          f"plain attack; infer_unet_spatial (trained unet_2, f32, "
+          f"4x512x512) against infer_unet max |d| {d_sp:.3e} (<= "
+          f"{SPATIAL_UNET_ATOL}, 0..255)")
+    one_u = unet_golden_step(None, dev)
+    one_b = {k: b0_golden_step(None, dev, *v) for k, v in B0_STEPS.items()}
+    zb = np.load(GOLDEN_B0_TRAIN)
+
+    def b0_errs(got, want):
+        """(loss rel, logits max |d|, gradients max |d| of the largest,
+        running statistics rel) of a B0 step against ``want``: against
+        the largest gradient of any tensor, since the biases of norms that
+        another norm follows have gradients at the rounding floor
+        (tests/test_torch_train_b0.py)."""
+        gmax = max(float(np.abs(v).max()) for v in want["grad"].values())
+        return (abs(got["loss"] / want["loss"] - 1),
+                float(np.abs(got["logits"] - want["logits"]).max()),
+                max(float(np.abs(got["grad"][k] - v).max())
+                    for k, v in want["grad"].items()) / gmax,
+                _rel_max(got["stats"], want["stats"]))
+
+    def jax_f32_errs(got, live):
+        """(loss rel, logits max |d|, JAX's full gradients max|d|/max|g|)
+        of an f32 B0 step against JAX's f32 golden step."""
+        tag = "live/" if live else ""
+        want = {k[len(f"{tag}grad/"):]: zb[k] for k in zb.files
+                if k.startswith(f"{tag}grad/")}
+        return (abs(got["loss"] / float(zb[f"{tag}loss"]) - 1),
+                float(np.abs(got["logits"] - zb[f"{tag}logits"]).max()),
+                _rel_grad_err(got["grad"], want))
+
+    def steps_equal(got, tag, unet_bounds):
+        du = _rel_max(got["unet_step"]["grad"], one_u["grad"])
+        lu = abs(got["unet_step"]["loss"] / one_u["loss"] - 1)
+        e64 = b0_errs(got["b0_live64"], one_b["b0_live64"])
+        f32 = {k: (b0_errs(got[k], one_b[k]),
+                   jax_f32_errs(got[k], B0_STEPS[k][0]))
+               for k in ("b0_live32", "b0_recipe32")}
+        print(f"parallel path {tag}: train_unet golden step against the "
+              f"step without a group: loss rel {lu:.3e} (<= "
+              f"{unet_bounds[0]}), gradients {du:.3e} (<= {unet_bounds[1]}); "
+              f"B0 live float64 step: loss rel {e64[0]:.3e}, logits "
+              f"{e64[1]:.3e}, gradients {e64[2]:.3e} (of the largest), "
+              f"running statistics {e64[3]:.3e} (each <= 1e-6); " +
+              "; ".join(
+                  f"{k} against the step without a group: loss rel "
+                  f"{e[0]:.3e}, logits {e[1]:.3e}, gradients {e[2]:.3e}, "
+                  f"running statistics {e[3]:.3e} (<= {B0_F32}, 1e-4) and "
+                  f"against JAX's f32 step: loss rel {j[0]:.3e}, logits "
+                  f"{j[1]:.3e}, gradients {j[2]:.3e} (<= {B0_F32})"
+                  for k, (e, j) in f32.items()))
+        check(lu <= unet_bounds[0] and du <= unet_bounds[1] and
+              max(e64) <= 1e-6 and
+              all(max(e[:3]) <= B0_F32 and e[3] <= 1e-4 and
+                  max(j) <= B0_F32 for e, j in f32.values()),
+              f"{tag}: a step != the step without a group, or an f32 B0 "
+              f"step != JAX's")
+
+    steps_equal(a, "(a)", (1e-6, 1e-5))
+
+    t_a = time.perf_counter() - t0
+
+    # (b) two gloo ranks on the one card
+    (job / "go").touch()
+    for r, p in enumerate(procs):
+        try:
+            log = p.communicate(timeout=RANK_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            log = p.communicate()[0]
+        check(p.returncode == 0,
+              f"gloo rank {r} failed ({p.returncode}):\n{log[-3000:]}")
+    t_b = time.perf_counter() - t0 - t_a
+    ranks = []
+    for r in range(2):
+        with open(job / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    b0_diff = 0.0
+    for r, got in enumerate(ranks):
+        check(got["b2_launches"] == n_batches and got["b1_launches"] == {
+            "wgmma": 0, "direct": n_batches // 2,
+            "fma": 9 * n_batches // 2},
+            f"rank {r}: launches B2 {got['b2_launches']}, B1 "
+            f"{got['b1_launches']}")
+        for key in ("sweep/KB", "sweep/KB-w", "sweep/beta", "sweep/l1"):
+            check(np.array_equal(got[key], a[key], equal_nan=True),
+                  f"rank {r}: {key} != the one-rank rows")
+        check(np.array_equal(np.isnan(got["sweep/b0"]),
+                             np.isnan(a["sweep/b0"])) and np.allclose(
+            got["sweep/b0"][keep], a["sweep/b0"][keep], rtol=B0_SHARD_RTOL,
+            atol=0), f"rank {r}: B0 rows != the one-rank rows")
+        b0_diff = max(b0_diff, float(np.abs(got["sweep/b0"][keep] -
+                                            a["sweep/b0"][keep]).max()))
+        for w in WEIGHTS:
+            check(np.allclose(got[f"spatial/{w}"], a[f"spatial/{w}"],
+                              rtol=RTOL, atol=ATOL),
+                  f"rank {r}: ws_attack_spatial weighted={w} != one rank")
+        d = float(np.abs(got["unet_spatial"] - a["unet_spatial"]).max())
+        check(d <= SPATIAL_UNET_ATOL,
+              f"rank {r}: infer_unet_spatial != one rank ({d})")
+        # a rank's half batch (2 of 4) takes other cuDNN f32 algorithms
+        # than the whole: phase 11's card bounds (loss rel 1e-4, gradients
+        # 1e-3), not the CPU's 1e-6 / 1e-5
+        steps_equal(got, f"(b) rank {r}", (1e-4, 1e-3))
+    print(f"parallel path (b), two gloo ranks on the card: each rank's "
+          f"KB, KB-w and U-Net sweep rows equal the one-rank rows bit for "
+          f"bit, B0's within {b0_diff:.3e} (rtol {B0_SHARD_RTOL}); B2 "
+          f"launches a rank {ranks[0]['b2_launches']}, B1 "
+          f"{json.dumps(ranks[0]['b1_launches'])}, each held to its plain "
+          f"version (max |err| B2 "
+          f"{max(g['b2_max_err'] for g in ranks):.3e}, B1 "
+          f"{max(g['b1_max_err'] for g in ranks):.3e}); spatial paths "
+          f"within the bounds of (a); gloo took the ranks' CUDA tensors "
+          f"as they lie")
+    print(f"parallel path: (a) {t_a:.1f} s, (b) {t_b:.1f} s after its go "
+          "(the ranks started up during (a))")
+    for r, got in enumerate(ranks):
+        times[f"world2_rank{r}"] = got["times"]
+        steps[f"world2_rank{r}"] = got["steps"]
+    print(f"parallel path (c), host clock ({smi_line}): " +
+          json.dumps(times))
+    print(f"parallel path (c), trainer step ms, host clock, 5 steps after "
+          f"2 warm-up steps ({smi_line}); world1: without a group (none) "
+          f"and on the one-rank nccl group (mesh), mean of 2 runs each; "
+          f"world2: each gloo rank on its half of the batch: " +
+          json.dumps(steps))
+    shutil.rmtree(job, ignore_errors=True)
+    b1 = dict(a["b1_launches"])
+    for got in ranks:
+        for k, v in got["b1_launches"].items():
+            b1[k] += v
+    return {"b2_launches": a["b2_launches"] +
+            sum(g["b2_launches"] for g in ranks),
+            "b1_launches": sum(b1.values()), "b1_by_variant": b1,
+            "times": times, "steps": steps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2461,6 +3083,10 @@ def main() -> int:
     ana = analyses_path(smi.stdout.strip().splitlines()[0])
     t = phase(13, "analyses and the serving CLI", t)
 
+    # ---- 14. the parallel path
+    par = parallel_path(smi.stdout.strip().splitlines()[0])
+    t = phase(14, "parallel path", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -2470,6 +3096,7 @@ def main() -> int:
         "launches": attack_launches,
         "launches_detection_path": det["b2_launches"],
         "launches_analyses_path": 0,
+        "launches_parallel_path": par["b2_launches"],
         "max_abs_err": max_err,
         "ms": b2_entry["ms"],
         "eager_ms": b2_entry["eager_ms"],
@@ -2488,6 +3115,7 @@ def main() -> int:
         "launches_by_variant": b1_path,
         "launches_detection_path": det["b1_launches"],
         "launches_analyses_path": ana["b1_launches"],
+        "launches_parallel_path": par["b1_launches"],
         "max_abs_err": max(b1_err_max.values()),
         **b1_entry,
     }]}))
@@ -2498,4 +3126,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               pathlib.Path(sys.argv[4])))
     sys.exit(main())

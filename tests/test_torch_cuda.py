@@ -703,3 +703,85 @@ def test_serve_loop_on_b1(cuda, tmp_path):
     for i in (0, 2):
         assert (out[i]["beta_hat"], out[i]["l1"]) == \
             srv.predict(gold["pixels"][0][i])
+
+
+# --- the parallel path (wsunet_tpu_torch.parallel) ------------------------
+
+@pytest.fixture
+def one_rank_group(cuda, tmp_path, request):
+    """A one-rank process group on the card (backend from the test's
+    parameter), torn down after the test."""
+    import torch.distributed as dist
+
+    from wsunet_tpu_torch.parallel.distributed import distributed_init
+
+    assert distributed_init(init_method=f"file://{tmp_path / 'rdzv'}",
+                            world_size=1, rank=0,
+                            backend=request.param) is False
+    try:
+        yield request.param
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [0, 1, -1])
+def test_ws_attack_spatial_on_the_card(cuda, weighted):
+    """The row-sharded attack without a group, on CUDA tensors, against
+    B2 and the plain attack (B2's tolerance)."""
+    from wsunet_tpu_torch.parallel.spatial import ws_attack_spatial
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randint(0, 256, (4, 256, 256), dtype=torch.uint8, device=cuda,
+                      generator=g)
+    kb = NAMED_FILTERS_2D["KB"]
+    got = ws_attack_spatial(x, kb, weighted=weighted)
+    assert got.is_cuda
+    for want in (fused_ws.ws_attack_fused(x, "KB", weighted),
+                 ws_attack(x, pixel_kernel=kb, weighted=weighted)):
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_rank_group", ["nccl", "gloo"], indirect=True)
+def test_infer_unet_spatial_on_a_one_rank_group(one_rank_group, cuda):
+    """The halo-exchanged U-Net on the card, under nccl and under gloo
+    (its halo rows CUDA tensors on both), against ``infer_unet`` at
+    tests/test_multichip.py's 1e-3 (0..255)."""
+    from wsunet_tpu_torch.parallel.spatial import infer_unet_spatial
+    from wsunet_tpu_torch.ws import infer_unet
+
+    gold = np.load(GOLDEN)
+    model, _ = load_pretrained_unet(REPO / "weights" / "unet" / "LSBR",
+                                    str(gold["run"]))
+    x = torch.from_numpy(gold["pixels"][0, :4]).to(cuda).float()
+    got = infer_unet_spatial(model, x)
+    assert got.is_cuda and got.shape == (4, 126, 126)
+    torch.testing.assert_close(got, infer_unet(model, x), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_rank_group", ["nccl", "gloo"], indirect=True)
+def test_collectives_keep_cuda_tensors_on_the_card(one_rank_group, cuda):
+    """Every collective of ``Mesh`` takes CUDA tensors on both backends
+    and gives them back on the card (gloo copies them through the host
+    itself), and ``replicate`` takes host arrays on both (nccl: sent
+    from the card)."""
+    from wsunet_tpu_torch.parallel import get_mesh, replicate
+
+    mesh = get_mesh()
+    t = torch.arange(6.0, device=cuda, requires_grad=True)
+    for out in (mesh.all_reduce(t), mesh.gather_batch(t),
+                *mesh.all_gather(t), mesh.all_reduce_autograd(t)):
+        assert out.is_cuda
+        torch.testing.assert_close(out.detach(), t.detach())
+    mesh.all_reduce_autograd(t).sum().backward()
+    torch.testing.assert_close(t.grad, torch.ones_like(t))
+    model = torch.nn.Linear(3, 2).to(cuda)
+    before = [p.detach().clone() for p in model.parameters()]
+    replicate(mesh, model)
+    for p, q in zip(model.parameters(), before):
+        assert torch.equal(p, q)
+    tree = replicate(mesh, {"a": np.arange(3.0), "b": [t.detach()]})
+    np.testing.assert_array_equal(tree["a"], np.arange(3.0))
+    assert tree["b"][0].is_cuda

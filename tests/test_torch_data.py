@@ -101,6 +101,43 @@ def test_native_decoder_matches_pil(root):
     assert native.decode_gray_batch([str(root / "nope.png")]) is None
 
 
+def test_native_colour_decoder_matches_imread4(tmp_path, monkeypatch):
+    """``decode_rgby_batch`` and the pipeline's native ``imread4_u8``
+    route, bitwise against ``io.imread4_u8`` (OpenCV's planes and
+    luminance) on RGB PNGs made of three p128 covers each; a missing file
+    gives None."""
+    from PIL import Image
+
+    assert native.available(), native.build_error()
+    covers = sorted((P128 / "images").glob("*.png"))[:9]
+    gray = [np.array(Image.open(p)) for p in covers]
+    paths = []
+    for i in range(3):
+        rgb = np.stack(gray[3 * i:3 * i + 3], axis=-1)
+        paths.append(str(tmp_path / f"rgb{i}.png"))
+        Image.fromarray(rgb).save(paths[-1])
+    want = [timread.imread4_u8(p) for p in paths]
+    got = native.decode_rgby_batch(paths, threads=2)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert g.shape == (128, 128, 4) and g.dtype == np.uint8
+        np.testing.assert_array_equal(g, w)
+    assert native.decode_rgby_batch(paths + [str(tmp_path / "no.png")]) \
+        is None
+    calls = []
+    batch_call = native.decode_rgby_batch
+    monkeypatch.setattr(native, "decode_rgby_batch",
+                        lambda *a: calls.append(a) or batch_call(*a))
+    pipeline.force_native(True)
+    try:
+        via = pipeline._decode_many(paths, timread.imread4_u8, threads=2)
+    finally:
+        pipeline.force_native(None)
+    assert len(calls) == 1
+    for g, w in zip(via, want):
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("backend", [False, True])
 def test_iterate_batches_tail_and_mask(root, backend):
     pipeline.force_native(backend)

@@ -41,7 +41,13 @@ OLS`` fits the OLS predictor on the covers, in the colour layouts for two
 or three ``--channels``.  ``simulate --method LSBr`` draws from torch
 generators seeded per image as the JAX CLI seeds its keys, so its stego
 pixels are not the JAX CLI's (HILLr's are).  pandas, PIL, matplotlib and
-seaborn are imported by the commands.  Every command runs under
+seaborn are imported by the commands.  The sweeps (``ws-eval``,
+``unet-eval``, ``detector-eval``, ``roc``) and the trainers use every
+rank they are started with (``parallel.distributed.distributed_init``:
+``torchrun --nproc-per-node N -m wsunet_tpu_torch ...``; without
+``torchrun`` one process): each rank sweeps its own rows or trains on
+its block of each batch, and rank 0 alone writes the CSVs, figures and
+runs.  Every command runs under
 ``utils.profiling.profile($WSUNET_PROFILE)`` and, with
 ``WSUNET_DEBUG_NANS=1``, ``nan_check``.  ``bench`` belongs to the
 benchmark, not yet ported.  The B0 recalibration is ``python -m
@@ -227,7 +233,42 @@ def main(argv=None):
         raise SystemExit(f"{args.command}: {e}")
 
 
+# the commands that use every rank of a process group
+SHARDED = ("ws-eval", "unet-eval", "detector-eval", "roc", "train-unet",
+           "train-b0")
+
+
 def _dispatch(args):
+    if args.command not in SHARDED:
+        return _run(args)
+    import torch.distributed as dist
+
+    from .parallel.distributed import distributed_init
+    started = not dist.is_initialized()
+    distributed_init(device=args.device)
+    started = started and dist.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _rank0() -> bool:
+    """Whether this process writes the command's files: rank 0 of the
+    process group, or the only process."""
+    from .parallel import get_mesh
+    return get_mesh().rank == 0
+
+
+def _write_csv(res, out):
+    if _rank0():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res.to_csv(out, index=False)
+        print(f"output saved to {out}")
+
+
+def _run(args):
     cmd = args.command
     # commands that do not walk the catalog refuse a row selection instead
     # of ignoring it
@@ -248,21 +289,16 @@ def _dispatch(args):
         res.to_csv(out, index=False)
         print(f"output saved to {out}")
     elif cmd == "ws-eval":
-        res = _ws_sweep(args)
-        out = args.results / "estimation" / f"ws_sweep_{args.train_method}.csv"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        res.to_csv(out, index=False)
-        print(f"output saved to {out}")
+        _write_csv(_ws_sweep(args), args.results / "estimation" /
+                   f"ws_sweep_{args.train_method}.csv")
     elif cmd == "unet-eval":
         from .ws import unet_run
         res = unet_run(args.data, args.model_dir, args.stego_method,
                        batch_size=args.batch_size, split=args.split,
                        take_num_images=args.take, fast_conv=args.fast_conv,
                        device=args.device)
-        out = args.results / "estimation" / f"ws_{args.stego_method}.csv"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        res.to_csv(out, index=False)
-        print(f"output saved to {out}")
+        _write_csv(res, args.results / "estimation" /
+                   f"ws_{args.stego_method}.csv")
     elif cmd == "detector-eval":
         from .detect import b0_run
         res = b0_run(args.data, args.model_dir, args.stego_method,
@@ -270,22 +306,21 @@ def _dispatch(args):
                      lsbr_reference=args.lsbr_reference,
                      batch_size=args.batch_size, split=args.split,
                      take_num_images=args.take, device=args.device)
-        out = args.results / "detection" / "b0.csv"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        res.to_csv(out, index=False)
-        print(f"output saved to {out}")
+        _write_csv(res, args.results / "detection" / "b0.csv")
     elif cmd == "roc":
         _cmd_roc(args)
     elif cmd == "train-unet":
         from .train.train_unet import train
         exp = train(args.config, data_path=args.data,
                     output_dir=args.output_dir, device=args.device)
-        print(f"experiment saved to {exp}")
+        if _rank0():
+            print(f"experiment saved to {exp}")
     elif cmd == "train-b0":
         from .train.train_b0 import train
         exp = train(args.config, data_path=args.data,
                     output_dir=args.output_dir, device=args.device)
-        print(f"experiment saved to {exp}")
+        if _rank0():
+            print(f"experiment saved to {exp}")
     elif cmd == "correlation":
         from .analyses import run_correlation
         unet = ("dropout", "LSBR", "HILLR") if args.model_dir else ()
@@ -524,6 +559,8 @@ def _cmd_roc(args):
     res["stego_method"] = res["stego_method"].fillna("Cover")
     res["alpha"] = res["alpha"].fillna(0.0)
     df_roc = produce_roc(res)
+    if not _rank0():
+        return
 
     alpha = args.alphas[-1]
     outdir = args.results / "detection"

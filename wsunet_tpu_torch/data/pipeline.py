@@ -19,7 +19,9 @@ Two caches, both keyed by path and bounded by bytes:
 
 The pipeline takes a list of names, not a DataFrame, so that it runs where
 pandas is not installed; ``sweep_batches`` maps a per-batch step over it
-and gives NaN rows where a decode failed.
+and gives NaN rows where a decode failed.  Under a process group it is
+rank-sharded (``parallel.eval_shard``): each rank sweeps its own rows and
+the rows are all-gathered back into order; the device cache is then off.
 
 Every batch yields fresh numpy pixels (``np.stack`` copies out of the
 decode cache), so a batch handed out is never overwritten by a later one.
@@ -139,8 +141,10 @@ def _decode_many(paths, reader, threads: int,
         return [_DECODE_CACHE[k] for k in keys]
     native = _get_native()
     name = getattr(reader, "__name__", "")
-    if native is not None and name == "imread_gray_u8":
-        out = native.decode_gray_batch([str(p) for p in paths], threads)
+    batch_call = {"imread_gray_u8": "decode_gray_batch",
+                  "imread4_u8": "decode_rgby_batch"}.get(name)
+    if native is not None and batch_call is not None:
+        out = getattr(native, batch_call)([str(p) for p in paths], threads)
         if out is not None:
             return out
 
@@ -174,6 +178,7 @@ def iterate_batches(
     cache: bool = False,
     device_cache: bool = False,
     device=None,
+    allow_empty: bool = False,
 ) -> typing.Iterator[Batch]:
     """Fixed-size padded ``Batch``es over the images ``names`` under
     ``root`` (catalog rows: ``list(df["name"])``), decoded in the
@@ -181,11 +186,18 @@ def iterate_batches(
     batch without failed decodes is also kept on ``device`` (None = CUDA)
     as a torch tensor, and a later pass over the same rows yields that
     tensor.  Images are taken as immutable for the process's lifetime
-    (the caches key by path); ``clear_decode_cache()`` forgets them."""
+    (the caches key by path); ``clear_decode_cache()`` forgets them.  A
+    batch with no decodable image raises ``FileNotFoundError``, or with
+    ``allow_empty`` gives ``pixels=None`` and an all-False mask."""
+    from ..parallel.eval_shard import cache_on_device
+
     names = list(names)
     n = len(names)
     if n == 0:
         return
+    # under ranks the device cache is off, as the JAX package's
+    # multi-process sweeps disable theirs
+    device_cache = device_cache and cache_on_device()
     dev = resolve_device(device) if device_cache else None
     reader_name = getattr(reader, "__name__", repr(reader))
 
@@ -203,6 +215,9 @@ def iterate_batches(
         decoded = _decode_many(paths, reader, threads, cache=cache)
         mask = np.ones(batch_size, dtype=bool)
         template = next((d for d in decoded if d is not None), None)
+        if template is None and allow_empty:
+            return Batch(pixels=None, mask=np.zeros(batch_size, dtype=bool),
+                         names=chunk)
         if template is None:
             raise FileNotFoundError(
                 f"no decodable image among {chunk[:3]}...")
@@ -257,11 +272,24 @@ def sweep_batches(root: pathlib.Path, names: typing.Sequence[str],
     """``step`` over the padded batches of ``names`` (decoded once per
     process, ``cache=True``): ``step(pixels)`` gives a tuple of [B]
     tensors, and the result is float64 [len(names), len(tuple)], one row an
-    image in order, NaN where the image failed to decode."""
+    image in order, NaN where the image failed to decode.
+
+    Under a process group each rank runs ``step`` on batches of
+    ``batch_size`` of its own strided rows (``parallel.host_shard``; the
+    device cache off) and every rank gets every row back in order
+    (``parallel.allgather_rows``); at a world of one the sweep is the
+    process's own."""
+    from ..parallel import allgather_rows, host_shard
+
+    names = list(names)
+    if not names:
+        return np.zeros((0, 0))
+    local, n_true = host_shard(names)
     outs = []
-    for batch in iterate_batches(root, names, batch_size, reader=reader,
-                                 threads=threads, prefetch=2, cache=True,
-                                 device_cache=device_cache, device=device):
+    for batch in iterate_batches(root, local, batch_size,
+                                 reader=reader, threads=threads, prefetch=2,
+                                 cache=True, device_cache=device_cache,
+                                 device=device):
         outs.append((step(batch.pixels), batch.mask[:len(batch.names)]))
     rows = []
     for vals, mask in outs:
@@ -269,4 +297,4 @@ def sweep_batches(root: pathlib.Path, names: typing.Sequence[str],
         v = v.astype("float64")
         v[~mask] = np.nan
         rows.append(v)
-    return np.concatenate(rows) if rows else np.zeros((0, 0))
+    return allgather_rows(np.concatenate(rows)[:n_true], len(names))

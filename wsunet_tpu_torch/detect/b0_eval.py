@@ -8,7 +8,9 @@
   ``config.json`` and ``best.npz`` (parameters and batch-norm running
   statistics, ``train.checkpoint``), read with numpy and json alone.
 - ``score_sweep``: P(stego) over image names, NaN where a decode failed
-  (numpy and torch only, so it runs on the card from ``.npy`` files).
+  (numpy and torch only, so it runs on the card from ``.npy`` files);
+  rank-sharded under a process group (``parallel``), each rank scoring
+  its own rows.
 - ``_score_frame`` / ``run``: the ``detector-eval`` sweep over a catalog,
   giving the rows of ``detection/b0.csv`` (pandas at this edge only).
 """
@@ -103,7 +105,9 @@ def score_sweep(root, names, detect: typing.Callable, batch_size: int,
     """P(stego), f32 [len(names)], of the images ``names`` under
     ``root``, NaN where an image failed to decode.  Batches stay on the
     device after their first pass (``device_cache``); ``reader`` decodes a
-    file."""
+    file.  Under a process group each rank scores batches of
+    ``batch_size`` (per rank) of its own rows, without the device cache,
+    and every rank returns every row."""
     from ..data.pipeline import sweep_batches
 
     out = sweep_batches(root, names, lambda px: (detect(px),), batch_size,

@@ -94,12 +94,13 @@ def _load():
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_int)]
         lib.ws_png_probe.restype = ctypes.c_int
-        fn = lib.ws_png_decode_gray_batch
-        fn.argtypes = [
-            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int]
-        fn.restype = ctypes.c_int
+        for fn in (lib.ws_png_decode_gray_batch,
+                   lib.ws_png_decode_rgby_batch):
+            fn.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+                ctypes.c_int]
+            fn.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -124,9 +125,10 @@ def probe(path) -> tuple:
     return h.value, w.value
 
 
-def decode_gray_batch(paths, threads: int = 8):
-    """Decode same-sized PNGs into a list of [H, W] uint8 arrays, or None
-    if the native path cannot serve this batch (the caller uses PIL)."""
+def _decode_batch(paths, threads: int, fn_name: str, channels: int):
+    """Decode same-sized PNGs with the batch call ``fn_name`` into a list
+    of [H, W] (``channels`` 1) or [H, W, channels] uint8 arrays, or None if
+    the native path cannot serve this batch (the caller uses PIL)."""
     lib = _load()
     if lib is None or not paths:
         return None
@@ -138,15 +140,29 @@ def decode_gray_batch(paths, threads: int = 8):
         # a corrupt header can claim absurd dimensions; PIL, with its own
         # decompression-bomb guard, takes such a batch
         return None
+    shape = (len(paths), h, w) + ((channels,) if channels > 1 else ())
     try:
-        out = np.empty((len(paths), h, w), dtype=np.uint8)
+        out = np.empty(shape, dtype=np.uint8)
     except MemoryError:
         return None
     c_paths = (ctypes.c_char_p * len(paths))(
         *[str(p).encode() for p in paths])
-    failures = lib.ws_png_decode_gray_batch(
+    failures = getattr(lib, fn_name)(
         c_paths, len(paths),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, threads)
     if failures != 0:
         return None
     return list(out)
+
+
+def decode_gray_batch(paths, threads: int = 8):
+    """Decode same-sized PNGs into a list of [H, W] uint8 arrays, or None
+    if the native path cannot serve this batch (the caller uses PIL)."""
+    return _decode_batch(paths, threads, "ws_png_decode_gray_batch", 1)
+
+
+def decode_rgby_batch(paths, threads: int = 8):
+    """Decode same-sized PNGs into a list of [H, W, 4] uint8 arrays, planes
+    R, G, B, Y (``io.imread4_u8``'s layout), or None if the native path
+    cannot serve this batch (the caller uses PIL)."""
+    return _decode_batch(paths, threads, "ws_png_decode_rgby_batch", 4)

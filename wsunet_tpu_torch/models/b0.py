@@ -118,7 +118,16 @@ class FlaxBatchNorm(nn.BatchNorm2d):
     own forward).  Training mode computes the statistics in f32 as Flax
     does (mean and mean of squares, var = max(0, E[x^2] - E[x]^2), the
     biased variance), normalises with them, and moves the running
-    statistics: ``r = 0.9 * r + 0.1 * batch``, the variance biased too."""
+    statistics: ``r = 0.9 * r + 0.1 * batch``, the variance biased too.
+
+    With a ``mesh`` (``set_batch_norm_mesh``) each rank holds a block of
+    the global batch, and the statistics are those of the global batch,
+    as JAX's batch-sharded batch norm reduces over the whole batch axis:
+    the per-channel sums and sums of squares are summed over the ranks by
+    an all-reduce that carries their gradient, and the running statistics
+    move identically on every rank."""
+
+    mesh = None
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-3, momentum=0.1)
@@ -127,9 +136,16 @@ class FlaxBatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        if self.mesh is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+        else:
+            sums = self.mesh.all_reduce_autograd(torch.stack([
+                xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+            count = xf.shape[0] * xf.shape[2] * xf.shape[3] * self.mesh.world
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
             self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
@@ -137,6 +153,15 @@ class FlaxBatchNorm(nn.BatchNorm2d):
         y = (xf - mean[:, None, None]) * mul[:, None, None] + \
             self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def set_batch_norm_mesh(model: nn.Module, mesh) -> None:
+    """Make every ``FlaxBatchNorm`` of ``model`` take its training-mode
+    statistics over the global batch of ``mesh`` (a ``parallel.Mesh``
+    with a process group), or, with None, over its own input."""
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm):
+            m.mesh = mesh
 
 
 def _make_norm(kind: str, channels: int) -> nn.Module:

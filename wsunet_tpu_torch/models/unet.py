@@ -93,19 +93,26 @@ class UniformDropout(nn.Module):
         return uniform_dropout(x, keep)
 
 
+def reflect_pad(x: torch.Tensor) -> torch.Tensor:
+    """The one-pixel reflect padding of every 3x3 conv of the default
+    route: [..., H, W] -> [..., H + 2, W + 2]."""
+    return F.pad(x, (1, 1, 1, 1), mode="reflect")
+
+
 class _Conv3x3Reflect(nn.Conv2d):
     """ReLU of a reflect-padded 3x3 conv (+ bias), in the dtype of the
-    input, by the route ``fast`` names (see ``fast_conv`` above)."""
+    input, by the route ``fast`` names (see ``fast_conv`` above).  The
+    default route pads with ``pad`` (``reflect_pad``; the row-sharded
+    forward passes its halo exchange)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3)
 
-    def forward(self, x, weight=None, fast=False):
+    def forward(self, x, weight=None, fast=False, pad=reflect_pad):
         w = (self.weight if weight is None else weight).to(x.dtype)
         b = self.bias.to(x.dtype)
         if not fast:
-            return F.relu(F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"),
-                                   w, b))
+            return F.relu(F.conv2d(pad(x), w, b))
         xn = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)
         hwio = w.permute(2, 3, 1, 0).contiguous()
@@ -122,8 +129,9 @@ class _ConvBlock(nn.Module):
         self.conv1 = _Conv3x3Reflect(in_channels, features)
         self.conv2 = _Conv3x3Reflect(features, features)
 
-    def forward(self, x, fast=False):
-        return self.conv2(self.conv1(x, fast=fast), fast=fast)
+    def forward(self, x, fast=False, pad=reflect_pad):
+        return self.conv2(self.conv1(x, fast=fast, pad=pad), fast=fast,
+                          pad=pad)
 
 
 class UNet(nn.Module):
@@ -162,10 +170,13 @@ class UNet(nn.Module):
             mask[0, 0, 1, 1] = 0.0
         self.register_buffer("center_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor,
-                keep: torch.Tensor = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: torch.Tensor = None,
+                pad=reflect_pad) -> torch.Tensor:
         """``keep``: the input dropout's mask [B, 1, H, W], required in
-        training mode when ``drop_rate`` is set."""
+        training mode when ``drop_rate`` is set.  ``pad`` pads the input
+        of every 3x3 conv on the default route by one pixel on each side
+        (``parallel.spatial`` passes its halo exchange); the fast routes
+        pad at their own tile edges and take only ``reflect_pad``."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype)
         if x.is_cuda and x.dtype == torch.float32:
@@ -173,20 +184,23 @@ class UNet(nn.Module):
         if self.input_dropout is not None:
             x = self.input_dropout(x, keep=keep)
         fast = self.fast_conv
+        if fast and pad is not reflect_pad:
+            raise ValueError(f"fast_conv={fast!r} pads at its own tile "
+                             f"edges and takes no other padding")
         h = self.e1_conv1(x, weight=self.e1_conv1.weight * self.center_mask,
-                          fast=fast)
-        h = self.e1_conv2(h, fast=fast)
+                          fast=fast, pad=pad)
+        h = self.e1_conv2(h, fast=fast, pad=pad)
         skips = [h]
         for step in range(1, self.nsteps + 1):
             h = F.max_pool2d(h, 2, stride=2)
-            h = getattr(self, f"e{step + 1}")(h, fast=fast)
+            h = getattr(self, f"e{step + 1}")(h, fast=fast, pad=pad)
             skips.append(h)
         for step in range(self.nsteps, 0, -1):
             up = getattr(self, f"up{step}")
             h = F.conv_transpose2d(h, up.weight.to(h.dtype),
                                    up.bias.to(h.dtype), stride=2)
             h = torch.cat([h, skips[step - 1]], dim=1)
-            h = getattr(self, f"d{step}")(h, fast=fast)
+            h = getattr(self, f"d{step}")(h, fast=fast, pad=pad)
         out = F.conv2d(h, self.outconv.weight.to(h.dtype),
                        self.outconv.bias.to(h.dtype))
         return torch.sigmoid(out).to(in_dtype)

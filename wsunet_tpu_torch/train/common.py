@@ -1,12 +1,17 @@
 """What both trainers share around their steps: the experiment directory,
-the metric log, an epoch's image order and the validation generators."""
+the metric log, an epoch's image order, the validation generators, the
+batches a rank feeds its step (``rank_batches``), and what rank 0 alone
+does under a process group (``on_rank0``, ``run_dir``, ``rank_writer``)."""
 
 import pathlib
 import time
+import typing
 
 import numpy as np
 import torch
 
+from .._device import to_device
+from ..data.pipeline import iterate_batches
 from ..utils import create_run_name
 
 
@@ -78,3 +83,81 @@ def experiment_dir(output_dir, method: str, platform: str,
         if not exp_dir.exists():
             return exp_dir
         time.sleep(0.25)
+
+
+class _NoWriter:
+    """The metric log of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, tag, value, global_step):
+        pass
+
+    def close(self):
+        pass
+
+
+def on_rank0(mesh, fn, *args, **kwargs) -> None:
+    """``fn(*args, **kwargs)`` on rank 0 alone (it writes the run's
+    files); the other ranks wait for it at a barrier."""
+    try:
+        if mesh.rank == 0:
+            fn(*args, **kwargs)
+    finally:
+        mesh.barrier()
+
+
+def run_dir(mesh, output_dir, method: str, platform: str,
+            cfg: dict) -> pathlib.Path:
+    """The experiment directory (``experiment_dir``), chosen by rank 0
+    and the same on every rank."""
+    return mesh.broadcast_object(
+        experiment_dir(output_dir, method, platform, cfg)
+        if mesh.rank == 0 else None)
+
+
+def rank_writer(mesh, log_dir: pathlib.Path):
+    """The metric log: a ``MetricWriter`` on rank 0, nothing elsewhere."""
+    return MetricWriter(log_dir) if mesh.rank == 0 else _NoWriter()
+
+
+def rank_batches(mesh, root, names: list, batch_size: int,
+                 reader: typing.Callable, device) -> typing.Iterator[tuple]:
+    """(mask, pixels, pixel_mask) of each batch of ``batch_size`` of
+    ``names``: ``mask`` the global batch's [batch_size] numpy bool (False
+    on padding and failed decodes), ``pixels`` and ``pixel_mask`` what
+    this rank feeds its step, on ``device``.  Without a process group
+    that is the whole batch; under one, this rank's contiguous block of
+    it, and the rank decodes only that block.  A short last batch is
+    padded by its first name, as ``iterate_batches`` pads by its first
+    image, and a failed decode is zeros, as there, so the blocks of every
+    rank make up the one-process batch (a block with no decodable image
+    too)."""
+    if mesh.group is None:
+        for batch in iterate_batches(root, names, batch_size, reader=reader,
+                                     cache=True):
+            yield batch.mask, to_device(batch.pixels, device), \
+                torch.as_tensor(batch.mask, device=device)
+        return
+    block = mesh.block(batch_size)
+    local, real = [], []
+    for start in range(0, len(names), batch_size):
+        chunk = list(names[start:start + batch_size])
+        real += [i < len(chunk) for i in range(batch_size)][block]
+        local += (chunk + chunk[:1] * (batch_size - len(chunk)))[block]
+    b = block.stop - block.start
+    for i, batch in enumerate(iterate_batches(root, local, b, reader=reader,
+                                              cache=True, allow_empty=True)):
+        # one all-gather a batch: each rank's image shape (none where no
+        # image of its block decoded) and mask
+        mask = batch.mask & real[i * b:(i + 1) * b]
+        dims = () if batch.pixels is None else batch.pixels.shape[1:]
+        row = list(dims) + [0] * (3 - len(dims)) + [len(dims)]
+        every = [e.cpu().numpy() for e in mesh.all_gather(torch.tensor(
+            row + mask.tolist(), dtype=torch.int64, device=device))]
+        shapes = [tuple(e[:e[3]]) for e in every if e[3]]
+        if not shapes:
+            raise FileNotFoundError(
+                f"no decodable image among {local[i * b:i * b + 3]}...")
+        pixels = batch.pixels if batch.pixels is not None else \
+            np.zeros((b,) + shapes[0], np.uint8)
+        yield np.concatenate([e[4:] for e in every]).astype(bool), \
+            to_device(pixels, device), torch.as_tensor(mask, device=device)

@@ -36,6 +36,20 @@ makes every random choice from one ``torch.Generator`` on the device, and
 replay the JAX trainer's own draws (``tests/test_torch_train_b0.py``,
 ``chip_smoke.py`` phase 12).
 
+Data parallel under a process group (``parallel``), as in the U-Net
+trainer: every rank starts from rank 0's parameters and running
+statistics, decodes its block of each batch's covers
+(``common.rank_batches``), makes the global batch's draws and keeps their
+block (the head dropout's mask [2B, 1280]: its rows of both halves), so
+each rank runs the model on its ``[covers; stegos]``
+pairs.  In training mode batch norm takes the statistics of the global
+batch (``models.b0.FlaxBatchNorm`` with a mesh), as JAX's batch-sharded
+batch norm does, so the running statistics move identically on every
+rank.  The cross-entropy's count is summed over the ranks and the
+gradients too, and the logits are gathered into the global ``[covers;
+stegos]`` order for the meters.  ``batch_size`` must divide by the world
+size; rank 0 alone writes the run.
+
 The JAX trainer builds a model with 3 (``grayscale=False``) or 4 and more
 (``demosaic_oracle``) input planes while its preprocessing gives 1 or 2,
 so its first step fails on the stem's parameter shape; the port refuses
@@ -50,8 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import resolve_device, to_device
-from ..data.pipeline import iterate_batches
+from .._device import resolve_device
 from ..data.simulate import hillr_simulate, lsbr_draws, lsbr_embed
 from ..data.transforms import crop, flip, lsbr_reference, normalize, rot90
 from ..detect.b0_eval import IMAGENET_GREEN_MEAN, IMAGENET_GREEN_STD
@@ -60,13 +73,14 @@ from ..detect.metrics import (AccuracyMeter, LossMeter, PEMeter,
 from ..io.imread import imread_gray_u8
 from ..models import (b0_state_dict_from_flax,
                       flax_b0_params_from_state_dict, get_b0, init_b0)
-from ..models.b0 import HEAD_WIDTH
+from ..models.b0 import HEAD_WIDTH, set_batch_norm_mesh
+from ..parallel import get_mesh, replicate
 from ..utils import setup_logger
 from ..utils.errors import UserError
 from .checkpoint import (PARAMS_FILE, load_checkpoint, load_params,
                          save_checkpoint, save_config, save_params)
-from .common import (MetricWriter, epoch_names, experiment_dir,
-                     repeat_names, val_generator)
+from .common import (epoch_names, on_rank0, rank_batches, rank_writer,
+                     repeat_names, run_dir, val_generator)
 from .config import B0TrainConfig
 from .train_unet import make_optimizer
 
@@ -102,12 +116,15 @@ class B0Sampler:
     logits [2B, 2], labels [2B]): crop, flip, rot90, the stego half
     (HILLr: each image at the listed rate nearest its own), /255, the
     optional LSBr-reference plane, ImageNet-green normalisation, the model
-    (in the mode it is in) on [covers; stegos]."""
+    (in the mode it is in) on [covers; stegos].  With a ``mesh`` the batch
+    is this rank's block (``shard`` takes its block of the draws) and the
+    mean's count is the global batch's."""
 
     def __init__(self, model, stego_method: str, alpha, crop: int = None,
                  augment: bool = False, use_lsbr_reference: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.rates = _rates(alpha)
         self.lsbr = stego_method.upper().startswith("LSB")
         self.crop = crop
@@ -146,6 +163,20 @@ class B0Sampler:
             d["keep"] = torch.rand((2 * B, HEAD_WIDTH), generator=g,
                                    device=dev) < 1.0 - self.dropout_rate
         return d
+
+    def shard(self, d: dict) -> dict:
+        """This rank's block of the global batch's draws: the leading
+        axis of each, and of the head dropout's mask [2B, 1280] the
+        rank's rows of the cover half and of the stego half."""
+        out = {}
+        for k, v in d.items():
+            if k == "keep":
+                halves = v.unflatten(0, (2, -1))
+                out[k] = halves[:, self.mesh.block(halves.shape[1])].flatten(
+                    0, 1)
+            else:
+                out[k] = v[self.mesh.block(v.shape[0])]
+        return out
 
     def embed(self, cover_u8: torch.Tensor, d: dict) -> torch.Tensor:
         if self.lsbr:
@@ -192,43 +223,75 @@ class B0Sampler:
         # masked mean: padded tail rows must not steer gradients or the
         # early-stopping validation loss
         w = torch.cat([mask, mask]).to(ce.dtype)
-        loss = torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1.0)
+        count = torch.sum(w)
+        if self.mesh is not None:
+            count = self.mesh.all_reduce(count)
+        loss = torch.sum(ce * w) / torch.clamp(count, min=1.0)
         return loss, logits, y
 
 
-def _make_steps(model, optimizer, scheduler, cfg: dict) -> tuple:
+def _gather_pairs(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's [covers; stegos] rows of ``t`` in the global
+    [covers; stegos] order."""
+    halves = mesh.all_gather(t.unflatten(0, (2, -1)).contiguous())
+    return torch.cat(halves, dim=1).flatten(0, 1)
+
+
+def _make_steps(model, optimizer, scheduler, cfg: dict, mesh=None) -> tuple:
     """(train_step, eval_step), each ``(cover_u8 [B, H, W], mask [B],
     generator=None, draws=None)`` -> (loss, logits, labels) on the model's
     device.  ``train_step`` draws (unless ``draws`` is given), runs the
     model in training mode (eval mode with ``freeze_bn``), takes one AdamW
     and one scheduler step; ``eval_step`` runs it in eval mode on
-    ``val_alpha`` pairs, without gradients."""
+    ``val_alpha`` pairs, without gradients.
+
+    With a ``mesh`` (a ``parallel.Mesh`` with a process group) both take
+    this rank's contiguous block of the global batch and its mask, make
+    (or take) the global batch's draws and keep their block, and return
+    the global loss, logits and labels; the model's batch norms take the
+    global batch's statistics and ``train_step`` sums the gradients over
+    the ranks."""
     freeze_bn = cfg.get("freeze_bn", False)
     kw = dict(crop=cfg.get("crop"), augment=cfg.get("augment", False),
-              use_lsbr_reference=cfg["lsbr_reference"])
+              use_lsbr_reference=cfg["lsbr_reference"], mesh=mesh)
+    set_batch_norm_mesh(model, mesh)
     train_sampler = B0Sampler(
         model, cfg["stego_method"], cfg["alpha"],
         dropout_rate=0.0 if freeze_bn else model.dropout.rate, **kw)
     val_sampler = B0Sampler(model, cfg["stego_method"],
                             cfg.get("val_alpha") or cfg["alpha"], **kw)
 
+    def local(sampler, cover_u8, generator, draws):
+        if mesh is None:
+            return draws if draws is not None else sampler.draw(
+                cover_u8.shape, generator)
+        shape = (cover_u8.shape[0] * mesh.world,) + tuple(cover_u8.shape[1:])
+        return sampler.shard(draws if draws is not None else
+                             sampler.draw(shape, generator))
+
+    def global_(loss, logits, y):
+        if mesh is None:
+            return loss, logits, y
+        return (mesh.all_reduce(loss), _gather_pairs(mesh, logits),
+                _gather_pairs(mesh, y))
+
     def train_step(cover_u8, mask, generator=None, draws=None):
-        d = draws if draws is not None else train_sampler.draw(
-            cover_u8.shape, generator)
+        d = local(train_sampler, cover_u8, generator, draws)
         model.train(not freeze_bn)
         optimizer.zero_grad(set_to_none=True)
         loss, logits, y = train_sampler.loss(cover_u8, mask, d)
         loss.backward()
+        if mesh is not None:
+            mesh.sum_gradients(model)
         optimizer.step()
         scheduler.step()
-        return loss.detach(), logits.detach(), y
+        return global_(loss.detach(), logits.detach(), y)
 
     @torch.no_grad()
     def eval_step(cover_u8, mask, generator=None, draws=None):
-        d = draws if draws is not None else val_sampler.draw(
-            cover_u8.shape, generator)
+        d = local(val_sampler, cover_u8, generator, draws)
         model.eval()
-        return val_sampler.loss(cover_u8, mask, d)
+        return global_(*val_sampler.loss(cover_u8, mask, d))
 
     train_step.sampler, eval_step.sampler = train_sampler, val_sampler
     return train_step, eval_step
@@ -310,13 +373,19 @@ def train_names(config: dict, data_path: pathlib.Path,
                 ) -> pathlib.Path:
     """Run one B0 training experiment over the training and validation
     images ``tr_names`` / ``va_names`` under ``data_path`` (decoded with
-    ``reader``) on ``device`` (None = CUDA); returns the experiment dir."""
+    ``reader``) on ``device`` (None = CUDA); returns the experiment dir.
+    Under a process group every rank takes its block of each batch
+    (module docstring)."""
     dev = resolve_device(device)
     cfg = B0TrainConfig.validate(config)
     check_trainable(cfg)
-    exp_dir = experiment_dir(output_dir, cfg["stego_method"], dev.type, cfg)
-    save_config(exp_dir, {**cfg, "dataset": str(data_path)})
-    writer = MetricWriter(exp_dir / "log")
+    mesh = get_mesh()
+    if cfg["batch_size"] % mesh.world:
+        raise UserError(f"batch_size {cfg['batch_size']} does not divide "
+                        f"over {mesh.world} ranks")
+    exp_dir = run_dir(mesh, output_dir, cfg["stego_method"], dev.type, cfg)
+    on_rank0(mesh, save_config, exp_dir, {**cfg, "dataset": str(data_path)})
+    writer = rank_writer(mesh, exp_dir / "log")
 
     model = build_model(cfg)
     if cfg.get("resume"):
@@ -324,14 +393,16 @@ def train_names(config: dict, data_path: pathlib.Path,
             cfg["resume"]
         _resume(model, resume_dir)
         log.info(f"resumed from {resume_dir}")
-    model.to(dev)
+    replicate(mesh, model.to(dev))
 
     batch_size = cfg["batch_size"]
     steps_per_epoch = cfg.get("steps_per_epoch") or max(
         1, len(tr_names) // batch_size)
     optimizer, scheduler = make_optimizer(cfg, steps_per_epoch,
                                           model.parameters())
-    train_step, eval_step = _make_steps(model, optimizer, scheduler, cfg)
+    train_step, eval_step = _make_steps(
+        model, optimizer, scheduler, cfg,
+        mesh=mesh if mesh.group is not None else None)
 
     seed = cfg["seed"] or 0
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -339,10 +410,7 @@ def train_names(config: dict, data_path: pathlib.Path,
     va_ep = repeat_names(list(va_names), cfg.get("val_steps"), batch_size)
 
     def batches(names):
-        for batch in iterate_batches(data_path, names, batch_size,
-                                     reader=reader, cache=True):
-            yield batch, to_device(batch.pixels, dev), torch.as_tensor(
-                batch.mask, device=dev)
+        return rank_batches(mesh, data_path, names, batch_size, reader, dev)
 
     best_val_loss = np.inf
     patience = cfg["patience"]
@@ -353,17 +421,17 @@ def train_names(config: dict, data_path: pathlib.Path,
             tr = _meters()
             progress = ProgressMeter(max(1, len(names) // batch_size),
                                      list(tr), prefix=f"Epoch: [{epoch}]")
-            for batch, pixels, mask in batches(names):
+            for valid, pixels, mask in batches(names):
                 _update_meters(tr, *train_step(pixels, mask, generator),
-                               batch.mask)
+                               valid)
             log.info(progress.to_str(0))
             for m in tr:
                 writer.add_scalar(f"train/{m.name}", m.avg, epoch)
 
             va = _meters()
-            for vb, (batch, pixels, mask) in enumerate(batches(va_ep)):
+            for vb, (valid, pixels, mask) in enumerate(batches(va_ep)):
                 _update_meters(va, *eval_step(
-                    pixels, mask, val_generator(seed, vb, dev)), batch.mask)
+                    pixels, mask, val_generator(seed, vb, dev)), valid)
             for m in va:
                 writer.add_scalar(f"val/{m.name}", m.avg, epoch)
             va_loss, va_pe, _, va_acc = va
@@ -380,9 +448,9 @@ def train_names(config: dict, data_path: pathlib.Path,
             # "last": best tracks the end of the schedule
             is_best = (True if cfg.get("select_metric") == "last"
                        else val_loss < best_val_loss)
-            save_checkpoint(exp_dir, state, is_best=is_best)
+            on_rank0(mesh, save_checkpoint, exp_dir, state, is_best=is_best)
             if is_best:
-                save_params(exp_dir, b0_params_tree(model))
+                on_rank0(mesh, save_params, exp_dir, b0_params_tree(model))
                 patience = cfg["patience"]
                 best_val_loss = val_loss
             else:

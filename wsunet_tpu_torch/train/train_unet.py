@@ -26,6 +26,18 @@ Validation runs the model in training mode under a fixed generator per
 validation batch, as the JAX trainer runs ``deterministic=False`` under a
 fixed dropout key: a dropout run is validated with dropout active.
 
+Data parallel under a process group (``parallel``), as the JAX trainer
+shards the batch over a 1-D ``data`` mesh with the parameters replicated:
+every rank starts from rank 0's parameters, decodes its contiguous block
+of each batch (``common.rank_batches``), and makes the global batch's
+draws from the same generator and keeps their block.  The masked mean's count is summed over the
+ranks, so each rank's loss is its share of the global masked mean, and
+the gradients are summed over the ranks: a step on two ranks is the step
+on one.  The validation loss is reduced the same way and the validation
+outputs gathered, so every rank sees the same metrics and stops at the
+same epoch.  ``batch_size`` is the global batch and must divide by the
+world size.  Rank 0 alone writes the run; the others wait at barriers.
+
 ``train`` reads the split CSVs (pandas) and calls ``train_names``, which
 takes image names and reads no CSV, so it runs where pandas is not
 installed.
@@ -39,19 +51,20 @@ import typing
 import numpy as np
 import torch
 
-from .._device import resolve_device, to_device
-from ..data.pipeline import iterate_batches
+from .._device import resolve_device
 from ..data.simulate import hillr_simulate, lsbr_draws, lsbr_embed
 from ..data.transforms import crop, flip, rot90
 from ..detect.metrics import LossMeter, MAEMeter, ProgressMeter, WSMeter
 from ..io.imread import imread_gray_u8
 from ..models import (flax_params_from_unet_state_dict, get_model, init_unet,
                       unet_state_dict_from_flax)
+from ..parallel import get_mesh, replicate, shard_batch
 from ..utils import setup_logger
+from ..utils.errors import UserError
 from .checkpoint import (PARAMS_FILE, load_checkpoint, load_params,
                          save_checkpoint, save_config, save_params)
-from .common import (MetricWriter, epoch_names, experiment_dir,
-                     repeat_names, val_generator)
+from .common import (epoch_names, on_rank0, rank_batches, rank_writer,
+                     repeat_names, run_dir, val_generator)
 from .config import UNetTrainConfig
 from .losses import get_loss
 
@@ -78,11 +91,14 @@ class Sampler:
     ``loss(cover_u8, mask, draws)`` -> (masked mean loss, outputs,
     inputs, alphas): crop, flip, rot90, alpha per image, embedding (HILLr:
     ``where(alpha > 0, hillr(cover), cover)``), /255, the model (in the
-    mode it is in), per-image loss, mean over ``mask``."""
+    mode it is in), per-image loss, mean over ``mask``.  With a ``mesh``
+    the batch is this rank's block and the mean's count is the global
+    batch's, so the loss is this rank's share of the global mean."""
 
     def __init__(self, model, loss_fn, stego_method, alpha, crop=None,
-                 augment=False, cover_fraction=0.5):
+                 augment=False, cover_fraction=0.5, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.loss_fn = loss_fn
         self.crop = crop
         self.augment = augment
@@ -150,38 +166,63 @@ class Sampler:
         # early-stopping validation loss
         per_image = self.loss_fn(outputs, covers, inputs, alphas)
         w = mask.to(per_image.dtype)
-        loss = torch.sum(per_image * w) / torch.clamp(torch.sum(w), min=1.0)
+        count = torch.sum(w)
+        if self.mesh is not None:
+            count = self.mesh.all_reduce(count)
+        loss = torch.sum(per_image * w) / torch.clamp(count, min=1.0)
         return loss, outputs, inputs, alphas
 
 
 def _make_step(model, loss_fn, optimizer, scheduler, stego_method, alpha,
-               crop=None, augment=False, cover_fraction=0.5):
+               crop=None, augment=False, cover_fraction=0.5, mesh=None):
     """(train_step, eval_step), each ``(cover_u8 [B, H, W], mask [B],
     generator, draws=None)`` on the model's device.  ``train_step`` draws
     (unless ``draws`` is given), takes one AdamW step and one scheduler
     step, and returns the loss; ``eval_step`` returns (loss, outputs,
     inputs, alphas) without gradients.  Both run the model in training
-    mode, as JAX's do."""
+    mode, as JAX's do.
+
+    With a ``mesh`` (a ``parallel.Mesh`` with a process group) both take
+    this rank's contiguous block of the global batch and its mask, make
+    (or take) the global batch's draws and keep their block, and return
+    what the one-rank step returns: the global loss (its share summed over
+    the ranks) and, from ``eval_step``, the global batch's outputs, inputs
+    and alphas; ``train_step`` sums the gradients over the ranks before
+    its AdamW step."""
     sampler = Sampler(model, loss_fn, stego_method, alpha, crop=crop,
-                      augment=augment, cover_fraction=cover_fraction)
+                      augment=augment, cover_fraction=cover_fraction,
+                      mesh=mesh)
+
+    def local(cover_u8, generator, draws):
+        if mesh is None:
+            return draws if draws is not None else sampler.draw(
+                cover_u8.shape, generator)
+        shape = (cover_u8.shape[0] * mesh.world,) + tuple(cover_u8.shape[1:])
+        return shard_batch(mesh, draws if draws is not None else
+                           sampler.draw(shape, generator))
 
     def train_step(cover_u8, mask, generator=None, draws=None):
-        d = draws if draws is not None else sampler.draw(cover_u8.shape,
-                                                         generator)
+        d = local(cover_u8, generator, draws)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         loss = sampler.loss(cover_u8, mask, d)[0]
         loss.backward()
+        if mesh is not None:
+            mesh.sum_gradients(model)
+            loss = mesh.all_reduce(loss)
         optimizer.step()
         scheduler.step()
         return loss.detach()
 
     @torch.no_grad()
     def eval_step(cover_u8, mask, generator=None, draws=None):
-        d = draws if draws is not None else sampler.draw(cover_u8.shape,
-                                                         generator)
+        d = local(cover_u8, generator, draws)
         model.train()
-        return sampler.loss(cover_u8, mask, d)
+        out = sampler.loss(cover_u8, mask, d)
+        if mesh is None:
+            return out
+        return (mesh.all_reduce(out[0]),
+                *(mesh.gather_batch(t) for t in out[1:]))
 
     train_step.sampler = eval_step.sampler = sampler
     return train_step, eval_step
@@ -257,17 +298,25 @@ def train_names(config: dict, data_path: pathlib.Path,
                 ) -> pathlib.Path:
     """Run one U-Net training experiment over the training and validation
     images ``tr_names`` / ``va_names`` under ``data_path`` (decoded with
-    ``reader``) on ``device`` (None = CUDA); returns the experiment dir."""
+    ``reader``) on ``device`` (None = CUDA); returns the experiment dir.
+    Under a process group every rank takes its block of each batch
+    (module docstring)."""
     dev = resolve_device(device)
     cfg = UNetTrainConfig.validate(config)
+    mesh = get_mesh()
+    if cfg["batch_size"] % mesh.world:
+        raise UserError(f"batch_size {cfg['batch_size']} does not divide "
+                        f"over {mesh.world} ranks")
+    step_mesh = mesh if mesh.group is not None else None
     stego_method = cfg["stego_method"]
-    exp_dir = experiment_dir(output_dir, stego_method or "dropout",
-                             dev.type, cfg)
+    exp_dir = run_dir(mesh, output_dir, stego_method or "dropout", dev.type,
+                      cfg)
     # registry label: cover-only (dropout-regularised) runs are registered
     # under "dropout"
-    save_config(exp_dir, {**cfg, "dataset": str(data_path),
-                          "stego_method": stego_method or "dropout"})
-    writer = MetricWriter(exp_dir / "log")
+    on_rank0(mesh, save_config, exp_dir,
+             {**cfg, "dataset": str(data_path),
+              "stego_method": stego_method or "dropout"})
+    writer = rank_writer(mesh, exp_dir / "log")
 
     model = init_unet(get_model(
         cfg["network"], drop_rate=cfg["drop_rate"],
@@ -278,7 +327,7 @@ def train_names(config: dict, data_path: pathlib.Path,
                       / cfg["resume"])
         _resume(model, resume_dir)
         log.info(f"resumed params from {resume_dir}")
-    model.to(dev)
+    replicate(mesh, model.to(dev))
     loss_fn = get_loss(
         cfg["loss"], per_image=True,
         loss_lambda=cfg["loss_lambda"] if cfg.get("weighted_loss") else None)
@@ -291,7 +340,7 @@ def train_names(config: dict, data_path: pathlib.Path,
     train_step, eval_step = _make_step(
         model, loss_fn, optimizer, scheduler, stego_method, cfg["alpha"],
         crop=cfg.get("crop"), augment=cfg.get("augment", False),
-        cover_fraction=cfg.get("cover_fraction", 0.5))
+        cover_fraction=cfg.get("cover_fraction", 0.5), mesh=step_mesh)
 
     seed = cfg["seed"] or 0
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -299,10 +348,7 @@ def train_names(config: dict, data_path: pathlib.Path,
     va_ep = repeat_names(list(va_names), cfg.get("val_steps"), batch_size)
 
     def batches(names):
-        for batch in iterate_batches(data_path, names, batch_size,
-                                     reader=reader, cache=True):
-            yield batch, to_device(batch.pixels, dev), torch.as_tensor(
-                batch.mask, device=dev)
+        return rank_batches(mesh, data_path, names, batch_size, reader, dev)
 
     best_val_loss = np.inf
     patience = cfg["patience"]
@@ -313,19 +359,19 @@ def train_names(config: dict, data_path: pathlib.Path,
             loss_meter = LossMeter(":.4e")
             progress = ProgressMeter(max(1, len(names) // batch_size),
                                      [loss_meter], prefix=f"Epoch: [{epoch}]")
-            for batch, pixels, mask in batches(names):
+            for valid, pixels, mask in batches(names):
                 loss = train_step(pixels, mask, generator)
-                loss_meter.update(float(loss), int(batch.mask.sum()))
+                loss_meter.update(float(loss), int(valid.sum()))
             log.info(progress.to_str(0))
             writer.add_scalar("train/loss", loss_meter.avg, epoch)
 
             va_meter, ws_meter = LossMeter(), WSMeter()
             mae_meter = MAEMeter(multiplier=255)
-            for vb, (batch, pixels, mask) in enumerate(batches(va_ep)):
+            for vb, (valid, pixels, mask) in enumerate(batches(va_ep)):
                 loss, outputs, inputs, alphas = eval_step(
                     pixels, mask, val_generator(seed, vb, dev))
-                va_meter.update(float(loss), int(batch.mask.sum()))
-                m = batch.mask
+                va_meter.update(float(loss), int(valid.sum()))
+                m = valid
                 inputs, outputs = inputs.cpu().numpy(), outputs.cpu().numpy()
                 ws_meter.update(inputs[m], outputs[m], alphas.cpu().numpy()[m])
                 mae_meter.update(inputs[m], outputs[m])
@@ -345,10 +391,10 @@ def train_names(config: dict, data_path: pathlib.Path,
             # "last": best tracks the end of the schedule
             is_best = (True if cfg.get("select_metric") == "last"
                        else val_loss < best_val_loss)
-            save_checkpoint(exp_dir, state, is_best=is_best)
+            on_rank0(mesh, save_checkpoint, exp_dir, state, is_best=is_best)
             if is_best:
-                save_params(exp_dir,
-                            flax_params_from_unet_state_dict(model.state_dict()))
+                on_rank0(mesh, save_params, exp_dir,
+                         flax_params_from_unet_state_dict(model.state_dict()))
                 patience = cfg["patience"]
                 best_val_loss = val_loss
             else:

@@ -3,7 +3,11 @@
 - ``attack_batches``: beta_hat over an iterable of uint8 [B, H, W]
   batches (arrays or tensors).
 - ``attack_sweep``: the same over catalog rows, fed by
-  ``data.pipeline.iterate_batches``; a failed decode gives NaN.  With
+  ``data.pipeline.sweep_batches``; a failed decode gives NaN.  Under a
+  process group the sweep is rank-sharded (``parallel``): each rank
+  attacks batches of its own strided rows, the fused route running B2
+  once a batch on each rank, and every rank gets every row back in
+  catalog order.  With
   ``channel`` (an [R, G, B, Y] plane other than Y) or ``pixel_estimator4``
   (the colour OLS predictor) it reads [B, H, W, 4] batches with
   ``io.imread4_u8`` and attacks the ``channel`` plane.
@@ -135,7 +139,9 @@ def attack_sweep(
     ``name`` column), in order; NaN where the image failed to decode.
     ``channel`` picks an [R, G, B, Y] plane (None or 3: the luminance);
     ``pixel_estimator4`` (f32 [B, 4, H, W] -> [B, H-2, W-2]) predicts the
-    ``channel`` plane from all four."""
+    ``channel`` plane from all four.  Under a process group each rank
+    sweeps batches of ``batch_size`` of its own rows (``batch_size`` is
+    per rank) and returns every row."""
     from ..data.pipeline import sweep_batches
     from ..io.imread import imread4_u8, imread_gray_u8
 

@@ -9,7 +9,9 @@
   ``config.json`` and ``best.npz`` (``train.checkpoint``), read with numpy
   and json alone.
 - ``predict_sweep``: (beta_hat, l1) over image names, NaN where a decode
-  failed (numpy and torch only).
+  failed (numpy and torch only); rank-sharded under a process group
+  (``parallel``), each rank running the model, on B1 with
+  ``fast_conv=True``, over its own rows.
 - ``_predict_frame`` / ``run``: the ``unet-eval`` sweep over a catalog,
   giving the rows of ``ws_<method>.csv`` (pandas at this edge only).
 """
@@ -22,6 +24,7 @@ import torch
 
 from .._device import resolve_device, to_model_device
 from ..data.transforms import center_crop
+from ..io.imread import imread_gray_u8
 from ..models import get_model, unet_state_dict_from_flax
 from ..ops.ws import ws_estimate_unet
 from ..train.checkpoint import load_config, load_params
@@ -83,18 +86,22 @@ def get_unet_estimator(model_path: pathlib.Path, model_name: str,
 
 
 def predict_sweep(root, names, model, batch_size: int, threads: int = 8,
-                  device=None) -> typing.Tuple[np.ndarray, np.ndarray]:
+                  device=None, reader: typing.Callable = imread_gray_u8
+                  ) -> typing.Tuple[np.ndarray, np.ndarray]:
     """(beta_hat, l1), f32 [len(names)], of the images ``names`` under
     ``root``, NaN where an image failed to decode.  Batches stay on the
     device after their first pass (``device_cache``), so the next sweep
-    over the same images starts there."""
+    over the same images starts there; ``reader`` decodes a file.  Under
+    a process group each rank runs batches of ``batch_size`` (per rank) of
+    its own rows, without the device cache, and every rank returns every
+    row."""
     from ..data.pipeline import sweep_batches
 
     dev = resolve_device(device)
     out = sweep_batches(root, names,
                         lambda px: predict_batch(model, px, device=dev),
                         batch_size, threads=threads, device_cache=True,
-                        device=dev).reshape(len(names), 2)
+                        device=dev, reader=reader).reshape(len(names), 2)
     return out[:, 0].astype(np.float32), out[:, 1].astype(np.float32)
 
 
