@@ -165,6 +165,26 @@ kernel against its plain PyTorch version:
    ``.npy`` covers at batch 8 (the CLI's default) at one and two ranks,
    and the trainer steps at 512x512 without a group and on the one-rank
    group, and on each of the two gloo ranks.
+15. the bench (``wsunet_tpu_torch.bench``): (a) in this process, the
+   headline step (``bench.make_step`` on ``bench.build_model``: seeded
+   ``unet_2`` at full width on B1, the default route) at 8 and 128
+   images of 512x512 in bf16 and at 8 and 32 in f32 (the subcommand's
+   default batch and (b)'s), its B1 launches counted (9 ``wgmma`` + 1
+   ``direct``; 9 ``fma`` + 1 ``direct``) and each held against B1's
+   plain version (phase 5's bounds, every output row), its (beta_hat,
+   l1) against the cuDNN route's; the latency section's bf16 server, its
+   B1 launches held alike; the ``ws_fused`` section at B=128, its B2
+   launches counted, each launch outside the timed CUDA graph held
+   against B2's plain version (phase 2's bounds) and its parity with the
+   plain attack for KB/AVG x weighted {0, 1, -1} at B2's tolerance; (b)
+   ``python -m wsunet_tpu_torch bench --batch-size 128`` (bf16, B1) and
+   ``--dtype float32 --batch-size 32`` as subprocesses, and ``run_bench``
+   at B=32 with ``WSUNET_BENCH_FAST_CONV=borderfix`` and ``0``: each JSON
+   record's keys and numbers (10 B1 launches a step on B1, the FLOPs,
+   ``mfu``, ``ws_fused``'s parity, the floor keys, the latency and decode
+   sections), printed with the card's name and power limit; (c) where the
+   headline step's time goes at four configurations (``device_profile``:
+   host wall, busy share, the top kernels) and its peak memory.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -305,20 +325,6 @@ def lsb_replace(x: np.ndarray, alpha: float, seed: int) -> np.ndarray:
     sel = rng.random(x.shape) < alpha
     bits = rng.integers(0, 2, x.shape, dtype=np.uint8)
     return np.where(sel, (x & 0xFE) | bits, x).astype(np.uint8)
-
-
-def unet_macs(nsteps: int, size: int) -> int:
-    """Multiply-accumulates of one U-Net forward on a size x size image,
-    from the layer shapes (3x3 convs, 2x2 stride-2 transposed convs, the
-    1x1 head)."""
-    w = [64, 128, 256, 512, 1024]
-    px = [(size >> s) ** 2 for s in range(nsteps + 1)]
-    macs = 9 * (1 * w[0] + w[0] * w[0]) * px[0] + w[0] * px[0]
-    for s in range(1, nsteps + 1):
-        macs += 9 * (w[s - 1] * w[s] + w[s] * w[s]) * px[s]        # e<s+1>
-        macs += w[s] * w[s - 1] * 4 * px[s]                        # up<s>
-        macs += 9 * (2 * w[s - 1] * w[s - 1] + w[s - 1] ** 2) * px[s - 1]
-    return macs
 
 
 def cuda_ms(fn, inputs, reps: int = 5, iters: int = 20) -> float:
@@ -1637,19 +1643,29 @@ UNET_PIXEL_ATOL = 2.55e-4
 SALIENCY_POINTS = [(307, 10), (261, 64), (155, 381), (9, 25)]
 
 
+# images a slice when a launch is held to B1's plain version: the plain
+# version in f32 of 16 images of the widest 512x512 layer needs about 13 GB
+CHECK_IMAGES = 16
+
+
 def checking_b1(calls: list, where: str):
     """A stand-in for ``fused_reflect_conv._launch`` that holds every
-    launch against B1's plain version in f32 on the same activations, at
-    phase 5's bounds, and records (dtype, max |err|) in ``calls``."""
+    launch against B1's plain version in f32 on the same activations
+    (``CHECK_IMAGES`` images at a time, every output row), at phase 5's
+    bounds, and records (dtype, max |err|) in ``calls``."""
     from wsunet_tpu_torch.ops import fused_reflect_conv
 
     launch = fused_reflect_conv._launch
 
     def checked_launch(x, w, b, relu):
         out = launch(x, w, b, relu)
-        want = fused_reflect_conv.conv3x3_reflect_fused_plain(
-            x.float(), w.float(), b.float(), relu)
-        err, ok = b1_err(out, want)
+        err, ok = 0.0, True
+        for i in range(0, x.shape[0], CHECK_IMAGES):
+            want = fused_reflect_conv.conv3x3_reflect_fused_plain(
+                x[i:i + CHECK_IMAGES].float(), w.float(), b.float(), relu)
+            e, o = b1_err(out[i:i + CHECK_IMAGES], want)
+            err, ok = max(err, e), ok and o
+            del want
         calls.append((x.dtype, err))
         check(ok, f"B1 on {where}, {str(x.dtype)[6:]} "
                   f"{tuple(x.shape)}->{w.shape[3]}: max |err| {err}")
@@ -2536,10 +2552,214 @@ def _parallel_path(smi_line, job, names, bad, keep, b0_label,
             "times": times, "steps": steps}
 
 
+# ---- phase 15: the bench (wsunet_tpu_torch.bench)
+# the subcommand's runs: (label, WSUNET_BENCH_FAST_CONV, dtype, batch);
+# the other two routes run in this process (run_bench), to keep the phase
+# short
+BENCH_CLI_RUNS = [("bf16, B=128, B1 (the defaults)", "1", "bfloat16", 128),
+                  ("f32, B=32, B1", "1", "float32", 32)]
+BENCH_ROUTE_RUNS = [("bf16, B=32, borderfix", "borderfix"),
+                    ("bf16, B=32, route 0", "0")]
+# the headline step's shapes held in process, (dtype, batch): the
+# subcommand's default batch and the batches of (b)'s B1 runs
+BENCH_STEP_SHAPES = [(torch.bfloat16, 8), (torch.bfloat16, 128),
+                     (torch.float32, 8), (torch.float32, 32)]
+B1_VARIANTS = {torch.bfloat16: {"wgmma": 9, "direct": 1},
+               torch.float32: {"fma": 9, "direct": 1}}
+# where the headline's time goes, (dtype, batch, fast_conv): the default,
+# f32 at (b)'s batch and at the default's, and route 0 for comparison
+BENCH_PROFILES = [("bfloat16", 128, True), ("float32", 32, True),
+                  ("float32", 128, True), ("bfloat16", 32, False)]
+BENCH_KEYS = ("value", "flops_per_image", "tflops_per_sec",
+              "fast_conv", "b1_launches_per_step", "peak_memory_gib",
+              "step_ms", "latency_ms_b1", "rtt_floor_ms", "latency_ms_b1_net",
+              "serial_images_per_sec", "streamed_images_per_sec",
+              "stream_speedup", "ws_fused", "decode_only", "e2e_decode")
+BENCH_TIMEOUT = 300
+
+
+def check_bench_record(label: str, out: dict, dtype: str, route,
+                       batch: int) -> None:
+    """The keys and numbers of one ``run_bench`` record on the card."""
+    from wsunet_tpu_torch import bench
+
+    missing = [k for k in BENCH_KEYS if k not in out]
+    check(not missing, f"bench {label}: missing {missing}")
+    check(out["platform"] == "cuda" and out["fast_conv"] == route,
+          f"bench {label}: {out['platform']}, fast_conv {out['fast_conv']}")
+    check(out["b1_launches_per_step"] == (10 if route is True else 0),
+          f"bench {label}: {out['b1_launches_per_step']} B1 launches a step")
+    check(f"{dtype}, batch {batch})" in out["metric"],
+          f"bench {label}: {out['metric']}")
+    check(out["flops_per_image"] == bench.unet_flops(bench.SIDE) / 1e9,
+          f"bench {label}: {out['flops_per_image']} GFLOP an image")
+    # mfu needs the card's peak (bench._PEAK_FLOPS)
+    peaked = any(k in out["device"] for k in bench._PEAK_FLOPS)
+    check(out["value"] > 0 and ("mfu" in out) == peaked and
+          0 < out.get("mfu", 0.5) < 1,
+          f"bench {label}: {out['value']} img/s, mfu {out.get('mfu')}")
+    # the floors of the configurations FLOORS holds are reported, not
+    # enforced here: a card below its 700 W limit runs slower
+    check(("floor_ok" in out) == ((dtype, route, batch) in bench.FLOORS
+                                  and bench.FLOOR_CARD in out["device"]),
+          f"bench {label}: floor keys")
+    fused = out["ws_fused"]
+    check(set(fused["parity_by_mode"]) ==
+          {f"{k}_w{w}" for k in ("KB", "AVG") for w in (0, 1, -1)},
+          f"bench {label}: ws_fused modes {sorted(fused['parity_by_mode'])}")
+    # beta_hat of uniform noise lies in [0, 1]: B2's tolerance at 1
+    check(fused["max_abs_diff_vs_plain"] <= ATOL + RTOL,
+          f"bench {label}: B2 {fused['max_abs_diff_vs_plain']} from plain")
+    check(fused["measurement_ok"] and fused["ms_per_call"] > 0,
+          f"bench {label}: ws_fused window {fused['window_ms']} ms")
+    for section in ("decode_only", "e2e_decode"):
+        check("unavailable" in out[section] or
+              out[section].get("images", 0) > 0,
+              f"bench {label}: {section} {out[section]}")
+
+
+def bench_path(smi_line: str) -> dict:
+    """Phase 15: (a) in this process, the bench's headline step on B1 at
+    the shapes the bench gives it (``BENCH_STEP_SHAPES``), every B1 launch
+    held against B1's plain version (phase 5's bounds) and counted, its
+    (beta_hat, l1) against the cuDNN route's; the latency section's bf16
+    server, one request; the ws_fused section at B=128, every B2 launch
+    outside the CUDA graph held against B2's plain version (phase 2's
+    bounds) and counted, its parity at B2's tolerance; (b) ``python -m
+    wsunet_tpu_torch bench`` at the defaults (B=128) and in f32 at B=32,
+    ``run_bench`` on the two other routes at B=32: the JSON records,
+    their keys and numbers; (c) where the headline's time goes
+    (``BENCH_PROFILES``, torch.profiler)."""
+    from wsunet_tpu_torch import bench
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.serve import UNetWSServer
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    b1_calls, b2_calls = [], []
+    b1_launch, b2_launch = fused_reflect_conv._launch, fused_ws._launch
+    checked_b2 = checking_b2(b2_calls, "the bench's ws_fused")
+
+    def b2_unless_capturing(x_u8, kernel_name, weighted):
+        # a launch captured in the timed graph is the warm-up launch's
+        # twin on the same input; the check would synchronize the capture
+        if torch.cuda.is_current_stream_capturing():
+            return b2_launch(x_u8, kernel_name, weighted)
+        return checked_b2(x_u8, kernel_name, weighted)
+
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    fused_reflect_conv._launch = checking_b1(b1_calls, "the bench's step")
+    fused_ws._launch = b2_unless_capturing
+    try:
+        for dtype, batch in BENCH_STEP_SHAPES:
+            x = torch.from_numpy(smooth_covers(batch, 512, seed=150)).to(dev)
+            before = dict(fused_reflect_conv.launches_by_variant)
+            beta, l1 = bench.make_step(
+                bench.build_model(dtype, True, dev), dev)(x)
+            got = {k: n - before[k] for k, n in
+                   fused_reflect_conv.launches_by_variant.items() if n
+                   - before[k]}
+            want = B1_VARIANTS[dtype]
+            check(got == want, f"bench step {dtype} B={batch}: B1 launches "
+                               f"{got}")
+            torch.cuda.empty_cache()
+            beta0, l10 = bench.make_step(
+                bench.build_model(dtype, False, dev), dev)(x)
+            d_beta = float((beta - beta0).abs().max())
+            d_l1 = (l1 - l10).abs()
+            # bf16: phase 4's bf16 server against f32 (l1 absolute); f32:
+            # phase 6's fast_conv=True against cuDNN (l1 relative)
+            if dtype == torch.bfloat16:
+                tol, d_l1 = (5e-3, 0.5), float(d_l1.max())
+            else:
+                tol, d_l1 = (1e-5, 1e-4), float((d_l1 / l10).max())
+            check(d_beta <= tol[0] and d_l1 <= tol[1],
+                  f"bench step {dtype} B={batch}: B1 against cuDNN beta "
+                  f"{d_beta}, l1 {d_l1}")
+            print(f"bench step B={batch} {str(dtype)[6:]} on B1: {got}, "
+                  f"|d beta| {d_beta:.3e}, d l1 {d_l1:.3e} from the cuDNN "
+                  f"route")
+            del x, beta, l1, beta0, l10
+            torch.cuda.empty_cache()
+        # the latency section's server (bf16 on the headline's route): its
+        # warm-up request and one more
+        server = UNetWSServer(bench.build_model(torch.bfloat16, True, dev),
+                              size=bench.SIDE, device=dev)
+        beta, l1 = server.predict(smooth_covers(1, 512, seed=151)[0])
+        check(np.isfinite([beta, l1]).all(), f"bench server: {beta}, {l1}")
+        del server
+        fused = bench._bench_ws_fused(dev, batch_size=128)
+    finally:
+        fused_reflect_conv._launch, fused_ws._launch = b1_launch, b2_launch
+    b1_launches, b2_launches = fused_reflect_conv.launches, fused_ws.launches
+    want_b1 = 10 * (len(BENCH_STEP_SHAPES) + 2)
+    check(b1_launches == len(b1_calls) == want_b1,
+          f"bench step: {b1_launches} B1 launches, {len(b1_calls)} checked")
+    check(fused["max_abs_diff_vs_plain"] <= ATOL + RTOL and
+          len(fused["parity_by_mode"]) == 6, f"ws_fused parity {fused}")
+    check(b2_launches == len(b2_calls) + 50 and len(b2_calls) == 9,
+          f"ws_fused: {b2_launches} B2 launches, {len(b2_calls)} checked")
+    print(f"bench in process: B1 {b1_launches} launches (max |err| "
+          f"{max(e for _, e in b1_calls):.3e}), B2 {b2_launches} "
+          f"({len(b2_calls)} held to the plain version, 50 in the timed "
+          f"graph); ws_fused B=128: " + json.dumps(fused))
+    torch.cuda.empty_cache()
+
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    for label, mode, dtype, batch in BENCH_CLI_RUNS:
+        t0 = time.perf_counter()
+        flags = ["--batch-size", str(batch)] + (
+            [] if dtype == "bfloat16" else ["--dtype", dtype])
+        proc = subprocess.run(
+            [sys.executable, "-m", "wsunet_tpu_torch", "bench", *flags],
+            cwd=REPO, env={**env, "WSUNET_BENCH_FAST_CONV": mode},
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        check(proc.returncode == 0, f"bench {label}: rc {proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        check_bench_record(label, out, dtype, bench.ROUTES[mode], batch)
+        print(f"bench {label} ({time.perf_counter() - t0:.1f} s, "
+              f"{smi_line}): " + json.dumps(out))
+    for label, mode in BENCH_ROUTE_RUNS:
+        os.environ["WSUNET_BENCH_FAST_CONV"] = mode
+        try:
+            out = bench.run_bench(batch_size=32)
+        finally:
+            del os.environ["WSUNET_BENCH_FAST_CONV"]
+        check_bench_record(label, out, "bfloat16", bench.ROUTES[mode], 32)
+        print(f"bench {label} ({smi_line}): " + json.dumps(out))
+    torch.cuda.empty_cache()
+
+    # (c) where the time goes; these launches are not counted above
+    rng = np.random.default_rng(0)
+    for dtype, batch, route in BENCH_PROFILES:
+        step = bench.make_step(
+            bench.build_model(bench.DTYPES[dtype], route, dev), dev)
+        x = torch.from_numpy(rng.integers(
+            0, 256, (batch, bench.SIDE, bench.SIDE)).astype(np.uint8)).to(dev)
+        step(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = device_profile(lambda: step(x), steps=3, top=8)
+        print(f"bench profile ({smi_line}): " + json.dumps(
+            {"dtype": dtype, "batch": batch, "fast_conv": route,
+             "peak_memory_gib": peak,
+             "images_per_sec_profiled": batch / prof["wall_ms"] * 1e3,
+             **prof}))
+        del step, x
+        torch.cuda.empty_cache()
+    return {"b1_launches": b1_launches, "b2_launches": b2_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from wsunet_tpu_torch import bench
     from wsunet_tpu_torch._device import disable_tf32
     from wsunet_tpu_torch.analyses import saliency_patch
     from wsunet_tpu_torch.models import get_model, init_unet
@@ -2990,7 +3210,7 @@ def main() -> int:
             check(tot["ms"] < tot["library_ms"],
                   "bf16 B1 slower than cuDNN's reflect-pad conv")
 
-    flop_img = 2 * unet_macs(2, 512)
+    flop_img = bench.unet_flops(512)
     step_ms = {}
     for dtype in (torch.bfloat16, torch.float32):
         batch = [torch.from_numpy(smooth_covers(32, 512, seed=8 + i)).to(dev)
@@ -3087,6 +3307,10 @@ def main() -> int:
     par = parallel_path(smi.stdout.strip().splitlines()[0])
     t = phase(14, "parallel path", t)
 
+    # ---- 15. the bench
+    ben = bench_path(smi.stdout.strip().splitlines()[0])
+    t = phase(15, "the bench", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -3097,6 +3321,7 @@ def main() -> int:
         "launches_detection_path": det["b2_launches"],
         "launches_analyses_path": 0,
         "launches_parallel_path": par["b2_launches"],
+        "launches_bench_path": ben["b2_launches"],
         "max_abs_err": max_err,
         "ms": b2_entry["ms"],
         "eager_ms": b2_entry["eager_ms"],
@@ -3116,6 +3341,7 @@ def main() -> int:
         "launches_detection_path": det["b1_launches"],
         "launches_analyses_path": ana["b1_launches"],
         "launches_parallel_path": par["b1_launches"],
+        "launches_bench_path": ben["b1_launches"],
         "max_abs_err": max(b1_err_max.values()),
         **b1_entry,
     }]}))

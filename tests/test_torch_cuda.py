@@ -785,3 +785,47 @@ def test_collectives_keep_cuda_tensors_on_the_card(one_rank_group, cuda):
     tree = replicate(mesh, {"a": np.arange(3.0), "b": [t.detach()]})
     np.testing.assert_array_equal(tree["a"], np.arange(3.0))
     assert tree["b"][0].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, want", [
+    (torch.bfloat16, {"wgmma": 9, "direct": 1, "fma": 0}),
+    (torch.float32, {"wgmma": 0, "direct": 1, "fma": 9})])
+def test_bench_headline_step_launches_b1_ten_times(cuda, monkeypatch, dtype,
+                                                   want):
+    """The bench's headline step on its default route (B1) launches B1 10
+    times a forward, and gives finite (beta_hat, l1) near the cuDNN
+    route's."""
+    from wsunet_tpu_torch import bench
+
+    monkeypatch.delenv("WSUNET_BENCH_FAST_CONV", raising=False)
+    model = bench.build_model(dtype, bench.conv_route(), cuda)
+    x = torch.from_numpy(_u8((2, 512, 512), seed=11)).to(cuda)
+    fused_reflect_conv.reset_launches()
+    beta, l1 = bench.make_step(model, cuda)(x)
+    assert fused_reflect_conv.launches_by_variant == want
+    assert torch.isfinite(beta).all() and torch.isfinite(l1).all()
+    plain = bench.build_model(dtype, False, cuda)
+    beta0, l10 = bench.make_step(plain, cuda)(x)
+    # bf16: the bf16 server's distance from f32 (chip_smoke.py phase 4)
+    atol = 5e-3 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(beta, beta0, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_bench_ws_fused_parity_on_card(cuda):
+    """The bench's ws_fused section: B2 against the plain attack for KB
+    and AVG x every weighting (a gap beyond B2's tolerance raises), and a
+    device time from a CUDA graph."""
+    from wsunet_tpu_torch import bench
+
+    fused_ws.reset_launches()
+    out = bench._bench_ws_fused(cuda, iters=10, batch_size=8)
+    assert set(out["parity_by_mode"]) == {
+        f"{k}_w{w}" for k in ("KB", "AVG") for w in (0, 1, -1)}
+    assert out["max_abs_diff_vs_plain"] == max(out["parity_by_mode"].values())
+    assert out["max_abs_diff_vs_plain"] < 1e-4
+    assert out["ms_per_call"] > 0 and out["images_per_sec"] > 0
+    assert out["window_ms"] == pytest.approx(10 * out["ms_per_call"])
+    # 6 parity calls, 3 warm-up calls and the 10 captured in the graph
+    assert fused_ws.launches == 19

@@ -159,6 +159,31 @@ def test_bf16_compute_dtype_keeps_output_dtype():
     assert float((y - y32).abs().max()) < 2e-2
 
 
+def test_reflect_pad_splits_a_batch_past_32_bit_indexing(monkeypatch):
+    """The default route pads a batch whose padded output holds more than
+    ``PAD_MAX_ELEMENTS`` (F.pad's reflect mode indexes in 32 bits on
+    CUDA, so a bf16 batch of 128 at 512x512 raised) a slice at a time,
+    with the same result: here the limit is lowered to 3 images' worth."""
+    from wsunet_tpu_torch.models import unet
+
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (7, 2, 30, 30), dtype=np.float32))
+    want = torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect")
+    model = init_unet(get_model("unet_1"), seed=1).eval()
+    with torch.no_grad():
+        y_want = model(x[:, :1])
+    chunks = []
+    pad = torch.nn.functional.pad
+    monkeypatch.setattr(unet, "PAD_MAX_ELEMENTS", 3 * 2 * 32 * 32)
+    monkeypatch.setattr(unet.F, "pad", lambda c, *a, **k: (
+        chunks.append(c.shape[0]), pad(c, *a, **k))[1])
+    assert torch.equal(unet.reflect_pad(x), want)
+    assert chunks == [3, 3, 1]
+    with torch.no_grad():
+        y = model(x[:, :1])
+    assert torch.equal(y, y_want)
+
+
 def test_get_model_rejects_unknown():
     with pytest.raises(NotImplementedError):
         get_model("b0")

@@ -19,6 +19,8 @@
     python -m wsunet_tpu_torch simulate       generate stego fixtures
     python -m wsunet_tpu_torch serve          single-image WS estimation
                                               loop
+    python -m wsunet_tpu_torch bench          UNet+WS throughput benchmark
+                                              (one JSON line)
 
 The flags and defaults are the JAX CLI's, and the commands write the same
 files (``prediction/filters.csv``, ``estimation/ws_sweep_<train>.csv``,
@@ -49,8 +51,13 @@ rank they are started with (``parallel.distributed.distributed_init``:
 its block of each batch, and rank 0 alone writes the CSVs, figures and
 runs.  Every command runs under
 ``utils.profiling.profile($WSUNET_PROFILE)`` and, with
-``WSUNET_DEBUG_NANS=1``, ``nan_check``.  ``bench`` belongs to the
-benchmark, not yet ported.  The B0 recalibration is ``python -m
+``WSUNET_DEBUG_NANS=1``, ``nan_check``.  ``bench`` is
+``bench.run_bench`` with ``--dtype``, ``--iters``, ``--batch-size`` and
+``--device``; as in the JAX CLI its batch is ``--batch-size``, whose
+default is 8 (``python -m wsunet_tpu_torch.bench`` runs B=128), its conv
+route comes from ``WSUNET_BENCH_FAST_CONV`` (``--fast-conv`` is refused),
+and ``--data`` names the decode sections' dataset (default
+``data_ablation/p128``).  The B0 recalibration is ``python -m
 wsunet_tpu_torch.train.bn_recalibrate``.
 """
 
@@ -191,6 +198,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alphas", nargs="+", type=float,
                    default=[.01, .05, .1, .2, .4, 1.0])
 
+    p = sub.add_parser("bench", help="UNet+WS throughput benchmark")
+    _common(p)
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--iters", type=int, default=20)
+    # the decode sections' dataset
+    p.set_defaults(data=None)
+
     p = sub.add_parser(
         "serve", help="single-image WS estimation loop (batch-1 path)")
     p.add_argument("images", nargs="*", type=pathlib.Path,
@@ -274,8 +288,11 @@ def _run(args):
     # of ignoring it
     if (getattr(args, "split", None) or getattr(args, "take", None)) and \
             cmd in ("contour", "saliency", "simulate", "train-unet",
-                    "train-b0", "init-dataset"):
+                    "train-b0", "init-dataset", "bench"):
         raise SystemExit(f"{cmd} does not support --split/--take")
+    if cmd == "bench" and args.fast_conv:
+        raise SystemExit("bench takes its conv route from "
+                         "WSUNET_BENCH_FAST_CONV (default 1: kernel B1)")
     if cmd == "filters-eval":
         from .ws import filters_run
         channels = ([(c,) for c in args.channels] if args.channels
@@ -374,6 +391,11 @@ def _run(args):
         print(f"catalogued {len(df)} covers under {args.data}")
     elif cmd == "simulate":
         _cmd_simulate(args)
+    elif cmd == "bench":
+        from .bench import run_bench
+        print(json.dumps(run_bench(dtype=args.dtype, iters=args.iters,
+                                   batch_size=args.batch_size,
+                                   device=args.device, root=args.data)))
     elif cmd == "serve":
         _cmd_serve(args)
     return 0

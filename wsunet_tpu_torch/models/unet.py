@@ -93,10 +93,22 @@ class UniformDropout(nn.Module):
         return uniform_dropout(x, keep)
 
 
+# the most elements F.pad's reflect mode takes on CUDA, which indexes in
+# 32 bits (a bf16 batch of 128 at 512x512 x 64 channels is 2**31)
+PAD_MAX_ELEMENTS = 2**31 - 1
+
+
 def reflect_pad(x: torch.Tensor) -> torch.Tensor:
     """The one-pixel reflect padding of every 3x3 conv of the default
-    route: [..., H, W] -> [..., H + 2, W + 2]."""
-    return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    route: [B, ..., H, W] -> [B, ..., H + 2, W + 2], a slice of the batch
+    at a time where the output holds more than ``PAD_MAX_ELEMENTS``."""
+    h, w = x.shape[-2:]
+    out = x.numel() // (h * w) * (h + 2) * (w + 2)
+    parts = -(-out // PAD_MAX_ELEMENTS)
+    if parts == 1 or x.shape[0] == 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    return torch.cat([F.pad(c, (1, 1, 1, 1), mode="reflect")
+                      for c in x.chunk(parts)])
 
 
 class _Conv3x3Reflect(nn.Conv2d):
