@@ -185,6 +185,26 @@ kernel against its plain PyTorch version:
    sections), printed with the card's name and power limit; (c) where the
    headline step's time goes at four configurations (``device_profile``:
    host wall, busy share, the top kernels) and its peak memory.
+16. the detection path from PNG files: the CLI as a user runs it, each
+   command a process in which pandas, PIL, cv2, matplotlib and seaborn
+   cannot be imported (stub packages first on ``PYTHONPATH``; this
+   script again, ``--cli-checked OUT ARGS``, which runs the CLI's
+   ``main`` with every B1 and B2 launch held against its plain version
+   and counted). (a) On the 64 committed p128 PNG covers and the golden
+   JAX stego written by ``io.png.write_png``: the covers decode bit for
+   bit; ``ws-eval`` (KB and KB-w on B2, ``UNet_l1ws`` on B1) and
+   ``unet-eval --fast-conv`` give phase 9's in-memory beta_hat bit for
+   bit, a corrupt cover (a bad CRC) the row its ``.npy`` gave in phase
+   9; ``detector-eval`` within phase 10's bound of JAX's P(stego); ``roc
+   --b0`` at each alpha within phase 9's bounds of JAX's AUC, wAUC, P_E
+   and P_MD@5%FP, its figure not drawn (no matplotlib). (b) At 512x512:
+   64 covers (four p256 covers tiled 2x2, from a seed) written by
+   ``write_png``, ``simulate --method LSBr --alphas 0.1 0.4``, ``ws-eval``
+   (KB, KB-w) and ``unet-eval --fast-conv`` over the 192 PNGs; then in
+   this process, the per-launch check off, the sweeps' wall and img/s
+   with the decode in the clock and the card's busy share, and the
+   bench's ``decode_only`` (ms an image at 1 and 8 threads) and
+   ``e2e_decode``, beside the card's name and power limit.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -718,7 +738,8 @@ def detection_path(smi_line: str) -> dict:
         first = (native.build_error() or "no error text").splitlines()[0]
         print(f"native decoder: unavailable ({first})")
     return {"b1_launches": b1_launches, "b2_launches": b2_launches,
-            "table": table}
+            "table": table, "scores": scores, "est_b1": est[True],
+            "unet_b1": (beta[True], l1[True]), "sweep": sweeps[0]}
 
 
 def b0_macs(model, size: int) -> dict:
@@ -2612,8 +2633,9 @@ def check_bench_record(label: str, out: dict, dtype: str, route,
           f"bench {label}: B2 {fused['max_abs_diff_vs_plain']} from plain")
     check(fused["measurement_ok"] and fused["ms_per_call"] > 0,
           f"bench {label}: ws_fused window {fused['window_ms']} ms")
+    # the port's PNG reader runs on the card: both sections are numbers
     for section in ("decode_only", "e2e_decode"):
-        check("unavailable" in out[section] or
+        check("unavailable" not in out[section] and
               out[section].get("images", 0) > 0,
               f"bench {label}: {section} {out[section]}")
 
@@ -2755,6 +2777,429 @@ def bench_path(smi_line: str) -> dict:
     return {"b1_launches": b1_launches, "b2_launches": b2_launches}
 
 
+# ---- phase 16: the detection path from PNG files (io.png, utils.table)
+PNG_JOB = REPO / "build" / "smoke_png"
+# what the card's machine lacks: stub packages that raise ImportError go
+# first on the CLI subprocesses' PYTHONPATH, so the proof holds anywhere
+HOST_PACKAGES = ("pandas", "PIL", "cv2", "matplotlib", "seaborn")
+CLI_TIMEOUT = 300
+# the corrupt cover: phase 9's corrupt .npy file is the same image
+PNG_BAD = 2
+# (b): 64 covers of 512x512, each four p256 covers tiled 2x2
+WIDE_COVERS = 64
+WIDE_ALPHAS = ("0.1", "0.4")
+
+
+def cli_checked(out: pathlib.Path, args: list) -> int:
+    """``chip_smoke.py --cli-checked OUT ARGS...``: ``python -m
+    wsunet_tpu_torch ARGS`` (the CLI's ``main``) in this process, each B1
+    and B2 launch held against its plain version (phases 5's and 2's
+    bounds) and counted from 0; the counts, the errors and the wall time
+    go to ``OUT`` (JSON).  Every host package must fail to import here,
+    before and after the run."""
+    import importlib
+
+    from wsunet_tpu_torch.cli import main as cli_main
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+
+    def host_loaded() -> list:
+        found = []
+        for name in HOST_PACKAGES:
+            try:
+                importlib.import_module(name)
+                found.append(name)
+            except ImportError:
+                pass
+        return found + sorted(m for m in sys.modules
+                              if m.split(".")[0] in HOST_PACKAGES)
+
+    check(not host_loaded(), f"host packages import here: {host_loaded()}")
+    b1_calls, b2_calls = [], []
+    fused_reflect_conv._launch = checking_b1(b1_calls, f"CLI {args[0]}")
+    fused_ws._launch = checking_b2(b2_calls, f"CLI {args[0]}")
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_main([str(a) for a in args])
+    wall = time.perf_counter() - t0
+    check(rc in (0, None), f"CLI {args[0]}: exit {rc}")
+    check(not host_loaded(), f"CLI {args[0]} loaded {host_loaded()}")
+    out.write_text(json.dumps({
+        "wall_s": wall, "b1": fused_reflect_conv.launches,
+        "b1_checked": len(b1_calls),
+        "b1_by_variant": dict(fused_reflect_conv.launches_by_variant),
+        "b1_max_err": max([e for _, e in b1_calls], default=0.0),
+        "b2": fused_ws.launches, "b2_checked": len(b2_calls),
+        "b2_max_err": max(b2_calls, default=0.0)}))
+    return 0
+
+
+def run_cli(job: pathlib.Path, label: str, args: list) -> dict:
+    """One CLI command as a subprocess of ``cli_checked``, where the host
+    packages cannot be imported; its record, stdout and stderr."""
+    stubs = job / "stubs"
+    for name in HOST_PACKAGES:
+        (stubs / name).mkdir(parents=True, exist_ok=True)
+        (stubs / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not installed here')\n")
+    out = job / f"cli_{re.sub(r'[^a-z0-9]+', '_', label.lower())}.json"
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(stubs), str(REPO)])}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--cli-checked",
+         str(out), *map(str, args)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    check(proc.returncode == 0, f"CLI {label}: exit {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    rec = json.loads(out.read_text())
+    check(rec["b1"] == rec["b1_checked"] and rec["b2"] == rec["b2_checked"],
+          f"CLI {label}: a launch escaped the check: {rec}")
+    rec.update(stdout=proc.stdout, stderr=proc.stderr,
+               process_s=time.perf_counter() - t0)
+    print(f"CLI {label} (a process without {', '.join(HOST_PACKAGES)}): "
+          f"{rec['process_s']:.1f} s ({rec['wall_s']:.1f} s in main); "
+          f"B1 {rec['b1']} launches {json.dumps(rec['b1_by_variant'])}, "
+          f"max |err| {rec['b1_max_err']:.3e}; B2 {rec['b2']}, max |err| "
+          f"{rec['b2_max_err']:.3e}, each held to its plain version")
+    return rec
+
+
+def read_rows(path: pathlib.Path) -> list:
+    """A CSV's rows as dicts of text (numbers parsed by the caller with
+    ``float``, the nearest double, so a written repr reads back
+    exactly)."""
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def png_catalog(root: pathlib.Path, gold) -> list:
+    """The golden covers as the committed PNGs and the golden JAX stego
+    written by ``io.png.write_png``, each directory with a ``files.csv``
+    table, in the JAX CLI's layout; the cover names."""
+    from wsunet_tpu_torch.io.png import write_png
+    from wsunet_tpu_torch.utils.table import Table
+
+    names = [str(n) for n in gold["names"]]
+    (root / "images").mkdir(parents=True)
+    for n in names:
+        shutil.copyfile(REPO / "data_ablation" / "p128" / n, root / n)
+    Table({"name": names, "height": 128, "width": 128},
+          n=len(names)).to_csv(root / "images" / "files.csv")
+    for s, alpha in enumerate(gold["sets"]):
+        if s == 0:
+            continue
+        sub = f"stego_LSBr_alpha_{alpha}_independent_images"
+        (root / sub).mkdir()
+        rows = [f"{sub}/{pathlib.Path(n).name}" for n in names]
+        for row, img in zip(rows, gold["pixels"][s]):
+            write_png(root / row, img)
+        Table({"name": rows, "height": 128, "width": 128,
+               "stego_method": "LSBR", "alpha": float(alpha)},
+              n=len(rows)).to_csv(root / sub / "files.csv")
+    return names
+
+
+def tile_covers(root: pathlib.Path, n: int, seed: int) -> None:
+    """``n`` 512x512 covers under ``root/images``, each four p256 covers
+    (drawn from ``seed``, each flipped or not on each axis) tiled 2x2,
+    written by ``io.png.write_png``, with their ``files.csv``."""
+    from wsunet_tpu_torch.io.imread import imread_gray_u8
+    from wsunet_tpu_torch.io.png import write_png
+    from wsunet_tpu_torch.utils.table import Table
+
+    src = sorted((REPO / "data_ablation" / "p256" / "images").glob("*.png"))
+    p256 = [imread_gray_u8(p) for p in src]
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    names = [f"images/c{i:02d}.png" for i in range(n)]
+    for name in names:
+        quads = []
+        for k in rng.integers(0, len(p256), 4):
+            q = p256[k]
+            if rng.random() < 0.5:
+                q = q[::-1]
+            if rng.random() < 0.5:
+                q = q[:, ::-1]
+            quads.append(q)
+        write_png(root / name, np.block([[quads[0], quads[1]],
+                                         [quads[2], quads[3]]]))
+    Table({"name": names, "height": 512, "width": 512},
+          n=n).to_csv(root / "images" / "files.csv")
+
+
+def png_path(smi_line: str, p9: dict) -> dict:
+    """Phase 16: the detection path from PNG files, the CLI as a user runs
+    it, in processes where pandas, PIL, cv2, matplotlib and seaborn
+    cannot be imported.  (a) On p128 against phase 9 and JAX: the covers
+    decode bit for bit; ``ws-eval`` (KB, KB-w, UNet_l1ws on B1) and
+    ``unet-eval --fast-conv`` give phase 9's in-memory beta_hat bit for
+    bit, the corrupt cover the row its ``.npy`` gave; ``detector-eval``
+    P(stego) within phase 10's bound of JAX's; ``roc --b0`` at each alpha
+    within phase 9's bounds of JAX's statistics; every B1 and B2 launch of
+    those processes held against its plain version.  (b) At 512x512:
+    ``simulate``, ``ws-eval`` (KB, KB-w) and ``unet-eval --fast-conv``
+    over 192 PNGs; decode ms an image at 1 and 8 threads, the sweeps'
+    wall and img/s with the decode in the clock, the card's busy share,
+    the bench's decode sections."""
+    from wsunet_tpu_torch import bench
+    from wsunet_tpu_torch.data import pipeline
+    from wsunet_tpu_torch.io.imread import imread_gray_u8
+    from wsunet_tpu_torch.io.png import PngError, library_path
+    from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
+    from wsunet_tpu_torch.utils.registry import get_model_name
+    from wsunet_tpu_torch.ws import unet_run, ws_run
+
+    torch.cuda.empty_cache()
+    gold, gold_b0 = np.load(GOLDEN), np.load(GOLDEN_B0)
+    job = PNG_JOB
+    shutil.rmtree(job, ignore_errors=True)
+    clean, bad = job / "clean", job / "corrupt"
+    t0 = time.perf_counter()
+    names = png_catalog(clean, gold)
+    sets = [str(x) for x in gold["sets"]]
+    alphas = sets[1:]
+    print(f"PNG catalog: {len(names)} committed p128 covers and "
+          f"{len(names) * len(alphas)} golden JAX stego written by "
+          f"io.png.write_png ({time.perf_counter() - t0:.2f} s); unfilter "
+          f"{library_path().name}")
+    # the decoded covers and stego against the golden pixels
+    t0 = time.perf_counter()
+    for s, label in enumerate(sets):
+        sub = "images" if s == 0 else \
+            f"stego_LSBr_alpha_{label}_independent_images"
+        got = np.stack([imread_gray_u8(clean / sub / pathlib.Path(n).name)
+                        for n in names])
+        check(np.array_equal(got, gold["pixels"][s]),
+              f"io.png {sub} != the golden pixels")
+    print(f"io.png decodes the {3 * len(names)} p128 PNGs bit for bit "
+          f"equal to the golden pixels ({time.perf_counter() - t0:.2f} s)")
+    shutil.copytree(clean, bad)
+    broken = bytearray((bad / names[PNG_BAD]).read_bytes())
+    broken[len(broken) // 2] ^= 0x20
+    (bad / names[PNG_BAD]).write_bytes(bytes(broken))
+    try:
+        imread_gray_u8(bad / names[PNG_BAD])
+        check(False, "the corrupt PNG decoded")
+    except PngError as e:
+        print(f"corrupt cover {names[PNG_BAD]}: {e}")
+
+    runs = {}
+    res = job / "res"
+    runs["ws-eval"] = run_cli(job, "ws-eval p128", [
+        "ws-eval", "--data", bad, "--results", res, "--models", "KB",
+        "KB-w", "UNet_l1ws", "--model-dir", "weights/unet", "--alphas",
+        *alphas, "--fast-conv"])
+    runs["unet-eval"] = run_cli(job, "unet-eval --fast-conv p128", [
+        "unet-eval", "--data", bad, "--results", res, "--model-dir",
+        "weights/unet", "--fast-conv"])
+    runs["detector-eval"] = run_cli(job, "detector-eval p128", [
+        "detector-eval", "--data", bad, "--results", res])
+    for alpha in alphas:
+        runs[f"roc {alpha}"] = run_cli(job, f"roc --b0 --alphas {alpha}", [
+            "roc", "--data", clean, "--results", job / f"roc_{alpha}",
+            "--alphas", alpha, "--b0"])
+        check(f"roc_{alpha}.png not drawn" in runs[f"roc {alpha}"]["stderr"],
+              "roc did not say that it drew no figure")
+
+    pos = {n: i for i, n in enumerate(names)}
+    keep = np.arange(len(names)) != PNG_BAD
+
+    def set_of(row) -> int:
+        return 0 if row["stego_method"] in ("", "Cover") else \
+            sets.index(str(float(row["alpha"])))
+
+    # ws-eval: beta_hat per (model, set, image), the corrupt cover dropped
+    unet_label = "UNet_l1ws_LSBR"
+    want = {"KB": p9["scores"]["KB"], "KB-w": p9["scores"]["KB-w"],
+            unet_label: p9["est_b1"]}
+    got = {k: np.full((len(sets), len(names)), np.nan) for k in want}
+    rows = read_rows(res / "estimation" / "ws_sweep_LSBR.csv")
+    for r in rows:
+        got[r["model_name"]][set_of(r), pos[
+            "images/" + pathlib.Path(r["name"]).name]] = float(r["beta_hat"])
+    check(len(rows) == len(want) * (len(sets) * len(names) - 1),
+          f"ws-eval wrote {len(rows)} rows")
+    for k in want:
+        check(np.isnan(got[k][0, PNG_BAD]),
+              f"ws-eval {k}: a row for the corrupt cover")
+        g, w = got[k].copy(), np.asarray(want[k], np.float64).copy()
+        g[0, PNG_BAD] = w[0, PNG_BAD] = 0.0
+        check(np.array_equal(g, w), f"ws-eval {k} from PNGs != phase 9's "
+              f"in-memory sweep, max |d| {np.abs(g - w).max()}")
+    print(f"ws-eval from PNGs (KB and KB-w on B2, {unet_label} on B1): "
+          f"beta_hat of every image bit for bit phase 9's in-memory sweep; "
+          f"the corrupt cover's row dropped, as from its .npy")
+
+    # unet-eval: (beta_hat, l1) per image, a NaN row for the corrupt cover
+    ub = np.full((len(sets), len(names)), np.inf, np.float32)
+    ul = ub.copy()
+    rows = read_rows(res / "estimation" / "ws_LSBR.csv")
+    for r in rows:
+        i = set_of(r), pos["images/" + pathlib.Path(r["name"]).name]
+        ub[i] = np.float32(float(r["beta_hat"] or "nan"))
+        ul[i] = np.float32(float(r["l1"] or "nan"))
+    check(len(rows) == len(sets) * len(names), f"unet-eval: {len(rows)} rows")
+    sweep = p9["sweep"]
+    check(np.array_equal(ub[0], sweep[:, 0].astype(np.float32),
+                         equal_nan=True) and
+          np.array_equal(ul[0], sweep[:, 1].astype(np.float32),
+                         equal_nan=True),
+          "unet-eval covers from PNGs != phase 9's sweep from .npy")
+    check(np.array_equal(ub[1:], p9["unet_b1"][0][1:]) and
+          np.array_equal(ul[1:], p9["unet_b1"][1][1:]),
+          "unet-eval stego from PNGs != phase 9's predict_batch")
+    print("unet-eval --fast-conv from PNGs: (beta_hat, l1) of every image "
+          "bit for bit phase 9's (the covers: its sweep over .npy files, "
+          "the NaN row of the corrupt one included; the stego: its "
+          "predict_batch)")
+
+    # detector-eval: P(stego) against JAX's, the corrupt cover NaN
+    label = str(gold_b0["labels"][0])
+    prob = np.full((len(sets), len(names)), np.inf, np.float32)
+    rows = read_rows(res / "detection" / "b0.csv")
+    for r in rows:
+        prob[set_of(r), pos["images/" + pathlib.Path(r["name"]).name]] = \
+            float(r["output"] or "nan")
+    want_p = gold_b0[f"prob/{label}"]
+    d_p = float(np.abs(prob - want_p)[np.isfinite(prob)].max())
+    check(len(rows) == len(sets) * len(names) and
+          np.isnan(prob[0, PNG_BAD]) and
+          np.isfinite(np.delete(prob, PNG_BAD, axis=1)).all(),
+          "detector-eval: rows or NaN row wrong")
+    check(d_p <= B0_ATOL, f"detector-eval from PNGs: {d_p} from JAX")
+    print(f"detector-eval from PNGs ({label}): P(stego) within {d_p:.3e} "
+          f"of JAX (<= {B0_ATOL}); NaN for the corrupt cover")
+
+    # roc --b0 at each alpha against JAX's statistics (phase 9's bounds)
+    n = len(names)
+    bounds = {"auc": 1 / n ** 2, "wauc": 1 / n ** 2, "p_e": 1 / n,
+              "pmd_5fp": 1 / n}
+    stats = [str(k) for k in gold["stats"]]
+    table = []
+    for a, alpha in enumerate(alphas):
+        rows = {r["model_name"]: r for r in read_rows(
+            job / f"roc_{alpha}" / "detection" / f"auc_{alpha}.csv")}
+        ref = [(str(d), gold["roc"][a, i]) for i, d in
+               enumerate(gold["detectors"])] + \
+            [(str(d), gold_b0["roc"][a, i]) for i, d in
+             enumerate(gold_b0["detectors"]) if str(d) != "OLS"]
+        for det, want_row in ref:
+            row = {"alpha": alpha, "detector": det}
+            for key, bound in bounds.items():
+                got_v = float(rows[det][key])
+                want_v = float(want_row[stats.index(key)])
+                row[key], row[key + "_jax"] = got_v, want_v
+                check(abs(got_v - want_v) <= bound + 1e-12,
+                      f"roc {det} alpha {alpha}: {key} {got_v} against JAX "
+                      f"{want_v} (bound {bound})")
+            table.append(row)
+    print(f"roc --b0 from PNGs ({smi_line}), card (JAX): " + "; ".join(
+        f"{r['detector']} a={r['alpha']}: AUC {r['auc']:.6f} "
+        f"({r['auc_jax']:.6f}) P_E {r['p_e']:.6f} ({r['p_e_jax']:.6f}) "
+        f"wAUC {r['wauc']:.6f} ({r['wauc_jax']:.6f}) PMD5FP "
+        f"{r['pmd_5fp']:.6f} ({r['pmd_5fp_jax']:.6f})" for r in table))
+    print("roc from PNGs: every AUC and wAUC within 1/4096 of JAX's, P_E "
+          "and P_MD@5%FP within 1/64")
+
+    # (b) full width: 64 covers of 512x512 and their LSBr stego as PNGs
+    wide = job / "wide"
+    t0 = time.perf_counter()
+    tile_covers(wide, WIDE_COVERS, seed=160)
+    print(f"{WIDE_COVERS} 512x512 covers, each four p256 covers tiled 2x2, "
+          f"written by io.png.write_png in {time.perf_counter() - t0:.2f} s")
+    runs["simulate"] = run_cli(job, "simulate 512", [
+        "simulate", "--data", wide, "--method", "LSBr", "--alphas",
+        *WIDE_ALPHAS])
+    wres = job / "wide_res"
+    runs["ws-eval 512"] = run_cli(job, "ws-eval 512", [
+        "ws-eval", "--data", wide, "--results", wres, "--models", "KB",
+        "KB-w", "--alphas", *WIDE_ALPHAS])
+    runs["unet-eval 512"] = run_cli(job, "unet-eval --fast-conv 512", [
+        "unet-eval", "--data", wide, "--results", wres, "--model-dir",
+        "weights/unet", "--fast-conv"])
+    n_wide = WIDE_COVERS * (1 + len(WIDE_ALPHAS))
+    rows = read_rows(wres / "estimation" / "ws_sweep_LSBR.csv")
+    check(len(rows) == 2 * n_wide and
+          all(np.isfinite(float(r["beta_hat"])) for r in rows),
+          f"ws-eval 512: {len(rows)} rows")
+    for alpha in WIDE_ALPHAS:
+        kb = [float(r["beta_hat"]) for r in rows if r["model_name"] == "KB"
+              and r["alpha"] and float(r["alpha"]) == float(alpha)]
+        check(len(kb) == WIDE_COVERS and
+              abs(np.mean(kb) - float(alpha) / 2) < 0.05,
+              f"ws-eval 512 KB alpha {alpha}: mean {np.mean(kb)}")
+    rows = read_rows(wres / "estimation" / "ws_LSBR.csv")
+    check(len(rows) == n_wide and
+          all(np.isfinite(float(r["beta_hat"])) for r in rows),
+          f"unet-eval 512: {len(rows)} rows")
+    b1_cli = sum(r["b1"] for r in runs.values())
+    b2_cli = sum(r["b2"] for r in runs.values())
+    check(runs["ws-eval"]["b2"] and runs["ws-eval"]["b1"] and
+          runs["unet-eval"]["b1"] and runs["roc 0.1"]["b2"] and
+          runs["ws-eval 512"]["b2"] and runs["unet-eval 512"]["b1"],
+          "a kernel of the PNG path did not launch")
+
+    # the times, in this process, without the per-launch check
+    fused_reflect_conv.reset_launches()
+    fused_ws.reset_launches()
+    run = get_model_name(REPO / "weights" / "unet", "LSBR")
+    times = {}
+    for label, fn in (
+            ("ws-eval KB", lambda: [ws_run(wide, m, a, "KB") for m, a in
+                                    [(None, None)] + [("LSBR", float(x))
+                                                      for x in WIDE_ALPHAS]]),
+            ("ws-eval KB-w", lambda: [ws_run(wide, m, a, "KB-w")
+                                      for m, a in [(None, None)] +
+                                      [("LSBR", float(x))
+                                       for x in WIDE_ALPHAS]]),
+            ("unet-eval f32 on B1", lambda: unet_run(
+                wide, REPO / "weights" / "unet", "LSBR", model_name=run,
+                fast_conv=True))):
+        walls = []
+        for _ in range(2):
+            pipeline.clear_decode_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        pipeline.clear_decode_cache()
+        prof = device_profile(
+            lambda: (pipeline.clear_decode_cache(), fn()), steps=1)
+        times[label] = {"wall_s": walls, "images": n_wide,
+                        "images_per_sec": [n_wide / w for w in walls],
+                        "busy_share": prof["busy_share"],
+                        "busy_ms": prof["busy_union_ms"],
+                        "profiled_wall_ms": prof["wall_ms"]}
+        print(f"sweep from PNGs, decode in the clock ({smi_line}), {label}, "
+              f"{n_wide} 512x512 images at batch 8: " +
+              json.dumps(times[label]))
+    pipeline.clear_decode_cache()
+    only = bench._bench_decode_only(wide, threads=8)
+    print(f"bench decode_only, {WIDE_COVERS} 512x512 covers ({smi_line}): "
+          + json.dumps(only))
+    check("unavailable" not in only and only["decode_ms_per_img"] > 0 and
+          only["decode_ms_per_img_threads"] > 0, f"decode_only {only}")
+    e2e = bench._bench_e2e_decode(
+        bench.build_model(torch.bfloat16, True, torch.device("cuda")), wide)
+    print(f"bench e2e_decode, {n_wide} 512x512 PNGs, bf16 unet_2 on B1 "
+          f"({smi_line}): " + json.dumps(e2e))
+    check(e2e["png_images_per_sec"] > 0 and e2e["sweep_images_per_sec"] > 0,
+          f"e2e_decode {e2e}")
+    b1_timed, b2_timed = fused_reflect_conv.launches, fused_ws.launches
+    print(f"PNG path: B1 {b1_cli} and B2 {b2_cli} launches in the CLI "
+          f"processes, each held to its plain version; {b1_timed} B1 and "
+          f"{b2_timed} B2 launches in the timed runs, unchecked")
+    pipeline.clear_decode_cache()
+    return {"b1_launches": b1_cli + b1_timed, "b2_launches": b2_cli +
+            b2_timed, "b1_checked": b1_cli, "b2_checked": b2_cli,
+            "b1_max_err": max(r["b1_max_err"] for r in runs.values()),
+            "b2_max_err": max(r["b2_max_err"] for r in runs.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2795,6 +3240,14 @@ def main() -> int:
         print(f"  csrc/{src}.cu: nvcc {build['seconds']:.1f} s")
         for line in ptxas_lines(build["log"]):
             print("  ptxas: " + line)
+    # the PNG reader's unfilter (host code, g++), which phase 16 runs
+    from wsunet_tpu_torch.io import png
+    built = not png.library_path().exists()
+    t_build = time.perf_counter()
+    png._load()
+    print(f"  csrc/png_unfilter.cpp: g++ {time.perf_counter() - t_build:.2f} s"
+          f" ({'built' if built else 'already built'}: "
+          f"{png.library_path().name})")
     covers = smooth_covers(128, 512, seed=1)
     mixed = covers.copy()
     mixed[1::2] = lsb_replace(covers[1::2], ALPHA, seed=2)
@@ -3311,6 +3764,10 @@ def main() -> int:
     ben = bench_path(smi.stdout.strip().splitlines()[0])
     t = phase(15, "the bench", t)
 
+    # ---- 16. the detection path from PNG files
+    pngs = png_path(smi.stdout.strip().splitlines()[0], det)
+    t = phase(16, "the detection path from PNG files", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -3322,7 +3779,9 @@ def main() -> int:
         "launches_analyses_path": 0,
         "launches_parallel_path": par["b2_launches"],
         "launches_bench_path": ben["b2_launches"],
-        "max_abs_err": max_err,
+        "launches_png_path": pngs["b2_launches"],
+        "launches_png_path_checked": pngs["b2_checked"],
+        "max_abs_err": max(max_err, pngs["b2_max_err"]),
         "ms": b2_entry["ms"],
         "eager_ms": b2_entry["eager_ms"],
         "plain_ms": b2_entry["plain_ms"],
@@ -3342,7 +3801,9 @@ def main() -> int:
         "launches_analyses_path": ana["b1_launches"],
         "launches_parallel_path": par["b1_launches"],
         "launches_bench_path": ben["b1_launches"],
-        "max_abs_err": max(b1_err_max.values()),
+        "launches_png_path": pngs["b1_launches"],
+        "launches_png_path_checked": pngs["b1_checked"],
+        "max_abs_err": max(*b1_err_max.values(), pngs["b1_max_err"]),
         **b1_entry,
     }]}))
     print(json.dumps({"ok": True, "device": {
@@ -3352,6 +3813,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-checked"]:
+        sys.exit(cli_checked(pathlib.Path(sys.argv[2]), sys.argv[3:]))
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
                                pathlib.Path(sys.argv[4])))

@@ -60,7 +60,10 @@ the stem's and the head's norms, as norms for all), the table of its f32
 preprocessing per pixel value, and the same step again with JAX's model
 in float64 (``live64/``, ``jax_b0_live_step_f64``) as the exact reference
 of that ill-conditioned step; and the stem kernel
-of a ``get_b0(..., stem_init="highpass")`` init.  ``p128_filters.npz``
+of a ``get_b0(..., stem_init="highpass")`` init.  Its f32 steps round
+with the host's core count and vector ISA, so it is computed in a child
+process on one core, with one BLAS thread and XLA's CPU code capped at
+AVX2 (``B0_TRAIN_XLA_FLAGS``).  ``p128_filters.npz``
 holds ``filters-eval``'s per-image MAE and wMAE for KB and AVG on the 64
 covers (channel 3, every ``inbayer``) and on the color4 case's covers and
 stego (channels 0, 1 and 2).  ``p128_analyses.npz`` holds the analyses'
@@ -697,9 +700,40 @@ def recording(inner):
     return optax.GradientTransformation(init, update)
 
 
+# XLA's CPU code for the B0 training golden file: its f32 steps (convs,
+# batch norms, the optimizer) round differently with the host's core count
+# (Eigen's thread split of a reduction) and vector ISA (AVX2 or AVX-512):
+# 610 of its 1,334 arrays moved between two hosts.  One core and AVX2 give
+# the same file on every x86 host with AVX2 (and one BLAS thread, for
+# numpy's norms of the arrays).
+B0_TRAIN_XLA_FLAGS = "--xla_cpu_multi_thread_eigen=false " \
+    "--xla_cpu_max_isa=AVX2"
+
+
 def golden_b0_train(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
     """The B0 training golden file, computed with the JAX trainer's own
-    ``_make_steps`` and ``make_optimizer`` on the CPU."""
+    ``_make_steps`` and ``make_optimizer`` on the CPU, in a child process
+    of this script (``--b0-train-golden``) pinned to one core under
+    ``B0_TRAIN_XLA_FLAGS``: the caller's JAX may already run with other
+    flags, which XLA reads once a process."""
+    import os
+    import subprocess
+
+    # numpy's BLAS (the norms) splits its dot products by thread too
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": B0_TRAIN_XLA_FLAGS, "OPENBLAS_NUM_THREADS": "1",
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+    subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                    "--b0-train-golden", str(run_dir), str(out)],
+                   env=env, check=True, timeout=1800)
+    return out
+
+
+def _golden_b0_train(run_dir: pathlib.Path, out: pathlib.Path) -> None:
+    """``golden_b0_train``'s child: one core, then the JAX steps."""
+    import os
+
+    os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
     jax = _cpu_jax()
     import json
 
@@ -829,7 +863,6 @@ def golden_b0_train(run_dir: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
         v["params"]["conv_stem"]["kernel"], np.float32)
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez(out, **arrays)
-    return out
 
 
 FILTERS = ("KB", "AVG")
@@ -972,6 +1005,10 @@ def golden_analyses(out: pathlib.Path) -> pathlib.Path:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--b0-train-golden"]:
+        _golden_b0_train(pathlib.Path(argv[1]), pathlib.Path(argv[2]))
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run", action="append", type=pathlib.Path,
                     help="a run directory <root>/<family>/<method>/<run>, "

@@ -19,7 +19,7 @@ import pandas as pd
 import pytest
 import torch
 
-from torch_p128 import REPO, make_catalog
+from torch_p128 import REPO, make_catalog, run_without_host_packages
 from wsunet_tpu.cli import b0_label as jax_b0_label
 from wsunet_tpu.cli import main as jax_main
 from wsunet_tpu_torch.cli import b0_label
@@ -137,10 +137,7 @@ def cli_outputs(cat, tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", ["b0.csv"])
-def test_detector_eval_csv_matches_jax(cli_outputs, name):
-    got = pd.read_csv(cli_outputs["torch"] / name)
-    want = pd.read_csv(cli_outputs["jax"] / name)
+def _assert_b0_csv_matches(got, want):
     assert list(got.columns) == list(want.columns)
     assert len(got) == len(want) == 24
     for col in got.columns:
@@ -155,15 +152,46 @@ def test_detector_eval_csv_matches_jax(cli_outputs, name):
                 want[col].astype(str).tolist(), col
 
 
-@pytest.mark.parametrize("name", [f"auc_{ALPHAS[-1]}.csv",
-                                  f"roc_{ALPHAS[-1]}.csv"])
-def test_roc_b0_tables_equal_jax(cli_outputs, name):
-    got = pd.read_csv(cli_outputs["torch"] / name)
-    want = pd.read_csv(cli_outputs["jax"] / name)
+def _assert_roc_b0_table_equal(got, want, name):
     pd.testing.assert_frame_equal(got, want)
     if name.startswith("auc"):
         assert got["model_name"].tolist() == [
             "B0_mix0.1-0.05-0.01", "KB", "ns-r-B0_mix0.1-0.05-0.01"]
+
+
+@pytest.mark.parametrize("name", ["b0.csv"])
+def test_detector_eval_csv_matches_jax(cli_outputs, name):
+    _assert_b0_csv_matches(pd.read_csv(cli_outputs["torch"] / name),
+                           pd.read_csv(cli_outputs["jax"] / name))
+
+
+@pytest.mark.parametrize("name", [f"auc_{ALPHAS[-1]}.csv",
+                                  f"roc_{ALPHAS[-1]}.csv"])
+def test_roc_b0_tables_equal_jax(cli_outputs, name):
+    _assert_roc_b0_table_equal(pd.read_csv(cli_outputs["torch"] / name),
+                               pd.read_csv(cli_outputs["jax"] / name), name)
+
+
+@pytest.mark.parametrize("name", ["b0.csv", f"auc_{ALPHAS[-1]}.csv",
+                                  f"roc_{ALPHAS[-1]}.csv"])
+def test_b0_commands_without_host_packages_match_jax(cat, cli_outputs,
+                                                     tmp_path, name):
+    """``detector-eval`` and ``roc --b0`` in a fresh interpreter where
+    pandas, PIL, cv2 and matplotlib cannot be imported write the JAX CLI's
+    files (the comparisons above)."""
+    common = ["--data", cat, "--results", tmp_path, "--device", "cpu"]
+    if name == "b0.csv":
+        run_without_host_packages(["detector-eval", *common, "--model-dir",
+                                   PORT_B0], tmp_path)
+        _assert_b0_csv_matches(
+            pd.read_csv(tmp_path / "detection" / name),
+            pd.read_csv(cli_outputs["jax"] / name))
+        return
+    run_without_host_packages(["roc", *common, "--b0", "--b0-model-dir",
+                               PORT_B0, "--models", "KB", "--alphas",
+                               *ALPHAS], tmp_path)
+    _assert_roc_b0_table_equal(pd.read_csv(tmp_path / "detection" / name),
+                               pd.read_csv(cli_outputs["jax"] / name), name)
 
 
 def test_roc_b0_skips_a_missing_configuration(cat, tmp_path, capsys):

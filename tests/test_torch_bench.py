@@ -13,8 +13,9 @@ the CPU, small.
   gap: XLA counts 0.07% more in f32 and 0.6% more in bf16 (its
   elementwise work and casts).
 - ``run_bench(device="cpu")`` with the side patched to 64, the route
-  variable, the decode sections over ``data_ablation/p128``, the device
-  rule and the subcommand.
+  variable, the decode sections over ``data_ablation/p128`` (the port's
+  reader, with PIL and the native loader beside it where they load), the
+  device rule and the subcommand.
 """
 
 import json
@@ -171,54 +172,84 @@ def test_run_bench_rejects_another_dtype():
 
 
 def test_decode_only_over_p128():
-    out = bench._bench_decode_only(root=P128, repeats=2)
-    if "unavailable" in out:
-        pytest.skip(f"no native decoder here: {out['unavailable']}")
-    assert out["images"] == 64
-    assert out["decode_ms_per_img"] > 0 and out["pil_ms_per_img"] > 0
+    """``io.png`` at 1 and 2 threads, with PIL's and the native loader's
+    rates beside it (both load here)."""
+    out = bench._bench_decode_only(root=P128, repeats=2, threads=2)
+    assert out["reader"] == "io.png" and out["images"] == 64
+    assert out["threads"] == 2
+    for key in ("decode_ms_per_img", "decode_ms_per_img_threads",
+                "pil_ms_per_img", "native_ms_per_img",
+                "native_ms_per_img_threads"):
+        assert out[key] > 0, key
+    assert out["speedup_vs_pil"] == \
+        out["pil_ms_per_img"] / out["decode_ms_per_img"]
     assert out["floor_ok"] == (out["speedup_vs_pil"] >= 2.0)
+    assert "pil" not in out and "native" not in out
 
 
 def test_e2e_decode_over_p128():
     model = get_model("unet_0").eval()
     out = bench._bench_e2e_decode(model, root=P128, device="cpu",
                                   batch_size=16, repeats=2)
-    if "unavailable" in out:
-        pytest.skip(f"no native decoder here: {out['unavailable']}")
     assert out["images"] == 128 and out["sweep_passes"] == 2
-    for key in ("native", "pil", "sweep"):
+    for key in ("png", "pil", "native", "sweep"):
         assert out[f"{key}_images_per_sec"] > 0
-    # the section restores the automatic decoder choice and its caches
-    assert pipeline._NATIVE_TRIED is False and not pipeline._DECODE_CACHE
+    # the section restores the default decoder (io.png) and its caches
+    assert pipeline._FORCE_NATIVE is False and not pipeline._DECODE_CACHE
 
 
 @pytest.mark.parametrize("missing", ["PIL", "pandas"])
 def test_a_missing_package_makes_a_section_unavailable(monkeypatch,
                                                        missing):
+    """Without PIL only PIL's comparison is unavailable; the port's
+    reader, the native loader and the sweeps need neither PIL nor
+    pandas."""
     monkeypatch.setitem(sys.modules, missing, None)
     model = get_model("unet_0").eval()
-    e2e = bench._bench_e2e_decode(model, root=P128, device="cpu")
-    assert missing in e2e["unavailable"]
-    if missing == "PIL":
-        assert missing in bench._bench_decode_only(root=P128)["unavailable"]
+    e2e = bench._bench_e2e_decode(model, root=P128, device="cpu",
+                                  batch_size=16, repeats=1)
+    only = bench._bench_decode_only(root=P128, repeats=1, threads=2)
+    for out, key in ((e2e, "png_images_per_sec"),
+                     (only, "decode_ms_per_img")):
+        assert out[key] > 0
+        if missing == "PIL":
+            assert missing in out["pil"]["unavailable"]
+            assert not any(k.startswith("pil_") for k in out)
+        else:
+            assert "pil" not in out
+    assert ("floor_ok" in only) == (missing != "PIL")
 
 
 def test_a_missing_decoder_makes_both_sections_unavailable(monkeypatch):
-    monkeypatch.setattr(pipeline, "_get_native", lambda: None)
+    """Where the native loader does not build, its comparison alone is
+    ``unavailable`` in both sections; the port's reader runs."""
+    from wsunet_tpu_torch.io import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(native, "build_error",
+                        lambda: "fatal error: libdeflate.h: No such file")
     model = get_model("unet_0").eval()
-    for out in (bench._bench_decode_only(root=P128),
-                bench._bench_e2e_decode(model, root=P128, device="cpu")):
-        assert out["unavailable"].startswith("native PNG decoder")
+    for out in (bench._bench_decode_only(root=P128, repeats=1, threads=2),
+                bench._bench_e2e_decode(model, root=P128, device="cpu",
+                                        batch_size=16, repeats=1)):
+        assert out["native"]["unavailable"].startswith(
+            "native PNG decoder (fatal error: libdeflate.h")
+        assert not any(k.startswith("native_") for k in out)
+        assert out.get("decode_ms_per_img", 0) > 0 or \
+            out["png_images_per_sec"] > 0
 
 
 def test_any_other_decode_failure_raises(tmp_path):
-    if pipeline._get_native() is None:
-        pytest.skip("no native decoder here")
     with pytest.raises(FileNotFoundError):
         bench._bench_decode_only(root=tmp_path)
     with pytest.raises(FileNotFoundError):
         bench._bench_e2e_decode(get_model("unet_0").eval(), root=tmp_path,
                                 device="cpu")
+    # a cover that does not decode: the section raises, it does not skip it
+    (tmp_path / "images").mkdir()
+    (tmp_path / "images" / "a.png").write_bytes(b"not a png")
+    with pytest.raises(ValueError, match="not a PNG"):
+        bench._bench_decode_only(root=tmp_path, repeats=1)
 
 
 def test_run_bench_without_a_card_raises(monkeypatch):

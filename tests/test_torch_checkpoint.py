@@ -243,7 +243,8 @@ def test_registry_matches_jax_and_raises(tmp_path):
     _fake_run(tmp_path, "LSBR", "c", "l1", params=False)
     _fake_run(tmp_path, "LSBR", "d", "l1", debug=True)
     _fake_run(tmp_path, "dropout", "e", "l1")
-    got = registry.scan_models(tmp_path, "LSBR").sort_values("model_name")
+    got = registry.scan_models(tmp_path, "LSBR").to_pandas().sort_values(
+        "model_name")
     want = jax_registry.scan_models(tmp_path, "LSBR").sort_values(
         "model_name")
     assert got.reset_index(drop=True).equals(want.reset_index(drop=True))

@@ -20,7 +20,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from torch_p128 import P128, REPO, make_catalog
+from torch_p128 import P128, REPO, frame, make_catalog
 from wsunet_tpu.detect import Fold as JaxFold
 from wsunet_tpu.detect import ci as jax_ci
 from wsunet_tpu.detect import holdout_frames as jax_holdout_frames
@@ -224,7 +224,7 @@ def test_pooled_roc_within_a_near_tie_of_jax(frames):
     from wsunet_tpu_torch.detect import produce_roc
 
     cols = ["model_name", "auc", "p_e", "wauc", "pmd_5fp"]
-    got = produce_roc(frames[0])[cols].drop_duplicates().set_index(
+    got = frame(produce_roc(frames[0]))[cols].drop_duplicates().set_index(
         "model_name")
     want = jax_produce_roc(frames[1])[cols].drop_duplicates().set_index(
         "model_name")

@@ -2,7 +2,9 @@
 (wsunet_tpu_torch.data, wsunet_tpu_torch.io) against the JAX package's
 (wsunet_tpu.data, wsunet_tpu.io), on a catalog of p128 covers with LSBr
 stego made by the JAX package's ``simulate``.  Catalog frames must be
-equal (rows, columns, order, dtypes); decoded pixels bitwise equal."""
+equal (rows, columns, order, dtypes; the port's tables have no index, so
+the JAX frames are compared after ``reset_index(drop=True)``); decoded
+pixels bitwise equal."""
 
 import concurrent.futures
 import shutil
@@ -13,7 +15,7 @@ import pandas as pd
 import pytest
 import torch
 
-from torch_p128 import P128, make_catalog
+from torch_p128 import P128, frame, make_catalog
 from wsunet_tpu import data as jdata
 from wsunet_tpu.io import imread as jimread
 from wsunet_tpu.ops import NAMED_FILTERS_2D
@@ -42,12 +44,16 @@ def test_resolve_path_matches_lsbr_case(root):
     assert not tdata.resolve_path(root, missing).exists()
 
 
+def _assert_same_rows(got, want):
+    pd.testing.assert_frame_equal(frame(got), want.reset_index(drop=True))
+
+
 @pytest.mark.parametrize("select", [
     {}, {"take_num_images": 5}, {"shuffle_seed": 0},
     {"shuffle_seed": 3, "skip_num_images": 2, "take_num_images": 4}])
 def test_precovers_matches_jax(root, select):
-    pd.testing.assert_frame_equal(tdata.precovers(root, **select),
-                                  jdata.precovers(root, **select))
+    _assert_same_rows(tdata.precovers(root, **select),
+                      jdata.precovers(root, **select))
 
 
 @pytest.mark.parametrize("method, alpha", [
@@ -56,7 +62,7 @@ def test_precovers_matches_jax(root, select):
 def test_stego_spatial_matches_jax(root, method, alpha):
     got = tdata.stego_spatial(root, stego_method=method, alpha=alpha)
     want = jdata.stego_spatial(root, stego_method=method, alpha=alpha)
-    pd.testing.assert_frame_equal(got, want)
+    _assert_same_rows(got, want)
     if method == "LSBR" and alpha == 0.1:
         assert len(got) == 12 and (got["alpha"] == 0.1).all()
     if alpha == 0.4 or method == "HILLR":
@@ -65,18 +71,18 @@ def test_stego_spatial_matches_jax(root, method, alpha):
 
 def test_order_rows_and_pairs_match_jax(root):
     df = jdata.collect_files(root, ["images*", "stego*"])
-    pd.testing.assert_frame_equal(
-        tdata.collect_files(root, ["images*", "stego*"]), df)
+    _assert_same_rows(tdata.collect_files(root, ["images*", "stego*"]), df)
     for kw in ({}, {"shuffle_seed": 7}, {"shuffle_seed": 0,
                                           "take_num_images": 9}):
-        pd.testing.assert_frame_equal(tdata.order_rows(df, **kw),
-                                      jdata.order_rows(df, **kw))
-    pd.testing.assert_frame_equal(
+        _assert_same_rows(
+            tdata.order_rows(tdata.collect_files(root, ["images*",
+                                                        "stego*"]), **kw),
+            jdata.order_rows(df, **kw))
+    _assert_same_rows(
         tdata.cover_stego_pairs(root, stego_method="LSBR", alpha=0.01),
         jdata.cover_stego_pairs(root, stego_method="LSBR", alpha=0.01))
     split = tdata.precovers(P128, split="split_tr.csv")
-    pd.testing.assert_frame_equal(split,
-                                  jdata.precovers(P128, split="split_tr.csv"))
+    _assert_same_rows(split, jdata.precovers(P128, split="split_tr.csv"))
     with pytest.raises(FileNotFoundError):
         tdata.collect_files(root, ["jpegs*"])
 
@@ -145,7 +151,7 @@ def test_iterate_batches_tail_and_mask(root, backend):
         df = tdata.stego_spatial(root, stego_method="LSBR", alpha=0.1)
         got = list(tdata.iterate_batches(root, list(df["name"]),
                                          batch_size=5))
-        want = list(jdata.iterate_batches(root, df, batch_size=5))
+        want = list(jdata.iterate_batches(root, frame(df), batch_size=5))
     finally:
         pipeline.force_native(None)
     assert [len(b.names) for b in got] == [5, 5, 2]
@@ -183,7 +189,7 @@ def test_corrupt_png_gives_a_nan_row(tmp_path, root, cache):
     assert batches[0].mask.tolist() == [1, 1, 0, 1, 1, 1, 1, 1]
     assert not batches[0].pixels[2].any()
     got = attack_sweep(bad, df, kernel_name="KB", device="cpu")
-    want = jax_attack_sweep(bad, df, kernel_name="KB",
+    want = jax_attack_sweep(bad, frame(df), kernel_name="KB",
                             pixel_kernel=NAMED_FILTERS_2D["KB"])
     assert np.isnan(got[2]) and np.isnan(want[2])
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)

@@ -18,7 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_p128 import P128, REPO, make_catalog
+from torch_p128 import P128, REPO, make_catalog, run_without_host_packages
 from wsunet_tpu.ops import filters as jfilters
 from wsunet_tpu.ws import filters_eval as jfe
 from wsunet_tpu_torch.ops import filters as tfilters
@@ -78,6 +78,22 @@ def test_filters_eval_csv_is_the_jax_clis(cat, tmp_path, inbayer):
     _same_csv(want, got)
     assert got["mae_3_KB"].notna().sum() == 8
     assert got["fname"].iloc[0] == str(cat / "images" / "6_00.png")
+
+
+def test_filters_eval_without_host_packages_is_the_jax_clis(cat, tmp_path):
+    """``filters-eval`` in a fresh interpreter where pandas, PIL, cv2 and
+    matplotlib cannot be imported writes the JAX CLI's file."""
+    from wsunet_tpu.cli import main as jax_main
+
+    jax_main(["filters-eval", "--data", str(cat), "--results",
+              str(tmp_path / "jax"), "--filters", "KB", "AVG"])
+    run_without_host_packages(["filters-eval", "--data", cat, "--results",
+                               tmp_path / "torch", "--device", "cpu",
+                               "--filters", "KB", "AVG"], tmp_path)
+    want, got = [pd.read_csv(tmp_path / side / "prediction" / "filters.csv")
+                 for side in ("jax", "torch")]
+    _same_csv(want, got)
+    assert got["mae_3_KB"].notna().sum() == 8
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,9 @@ them inside their functions).
 
 Each module is imported in a fresh interpreter in which those packages
 cannot be imported at all; and every import statement of the sources is
-read, function bodies included."""
+read, function bodies included.  The detection path (``simulate``,
+``ws-eval``, ``roc --b0``) runs in such an interpreter, and loads none of
+pandas, PIL, cv2, matplotlib or seaborn."""
 
 import ast
 import json
@@ -128,3 +130,65 @@ def test_the_analyses_and_cli_edge_modules_are_covered():
                 "wsunet_tpu_torch.serve",
                 "wsunet_tpu_torch.cli"):
         assert mod in MODULES
+
+
+_PATH_PROBE = r"""
+import importlib.abc, json, pathlib, shutil, sys
+BLOCKED = set(json.loads(sys.argv[1]))
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+from wsunet_tpu_torch.cli import main
+src, root, res = (pathlib.Path(a) for a in sys.argv[2:5])
+(root / "images").mkdir(parents=True)
+lines = ["name,height,width"]
+for p in sorted(src.glob("*.png"))[:6]:
+    shutil.copyfile(p, root / "images" / p.name)
+    lines.append(f"images/{p.name},128,128")
+(root / "images" / "files.csv").write_text("\n".join(lines) + "\n")
+common = ["--data", str(root), "--results", str(res), "--device", "cpu"]
+main(["simulate", "--data", str(root), "--device", "cpu", "--alphas", "0.1"])
+main(["ws-eval", *common, "--models", "KB", "KB-w", "--alphas", "0.1"])
+main(["roc", *common, "--alphas", "0.1", "--models", "KB", "UNet", "--b0"])
+print(json.dumps({
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in BLOCKED),
+    "port": sorted(m for m in sys.modules
+                   if m.startswith("wsunet_tpu_torch."))}))
+"""
+
+# the detection path's modules, which must load without the host packages
+DETECTION_PATH = ("wsunet_tpu_torch.io.png", "wsunet_tpu_torch.io.imread",
+                  "wsunet_tpu_torch.utils.table",
+                  "wsunet_tpu_torch.data.catalog",
+                  "wsunet_tpu_torch.data.pipeline",
+                  "wsunet_tpu_torch.data.simulate",
+                  "wsunet_tpu_torch.ws.estimate",
+                  "wsunet_tpu_torch.ws.unet_eval",
+                  "wsunet_tpu_torch.ws.filters_eval",
+                  "wsunet_tpu_torch.detect.b0_eval",
+                  "wsunet_tpu_torch.detect.roc", "wsunet_tpu_torch.cli")
+
+
+def test_the_detection_path_runs_without_the_host_packages(tmp_path):
+    """``simulate``, ``ws-eval`` and ``roc --b0`` run in an interpreter
+    where pandas, PIL, cv2, matplotlib and seaborn cannot be imported:
+    the path's modules load and none of those packages does."""
+    host = ["pandas", "PIL", "cv2", "matplotlib", "seaborn"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _PATH_PROBE, json.dumps(host),
+         str(REPO / "data_ablation" / "p128" / "images"),
+         str(tmp_path / "cat"), str(tmp_path / "res")],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    for mod in DETECTION_PATH:
+        assert mod in out["port"], mod
+    assert "roc_0.1.png not drawn" in proc.stderr
+    for name in ("estimation/ws_sweep_LSBR.csv", "detection/auc_0.1.csv",
+                 "detection/roc_0.1.csv"):
+        assert (tmp_path / "res" / name).stat().st_size > 0

@@ -26,7 +26,7 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_p128 import P128, REPO, make_catalog
+from torch_p128 import P128, REPO, frame, make_catalog
 from wsunet_tpu.cli import main as jax_main
 from wsunet_tpu.ops import ols as jols
 from wsunet_tpu.ws import ws_run as jax_ws_run
@@ -191,6 +191,7 @@ def color_cat(tmp_path_factory, color):
 
 
 def _assert_frames_match(got, want, beta_atol=BETA_ATOL):
+    got = frame(got)
     assert list(got.columns) == list(want.columns)
     got, want = got.reset_index(drop=True), want.reset_index(drop=True)
     assert len(got) == len(want) > 0

@@ -118,16 +118,20 @@ def case_sweeps(job: pathlib.Path) -> dict:
     cat = job / "cat"
 
     def frames():
+        # the port's rows are tables; compared here as DataFrames
         ws = pd.concat(
             [ws_run(cat, "LSBR", 0.1, m, batch_size=SWEEP_BATCH,
-                    device="cpu") for m in ("KB", "KB-w", "OLS")] +
+                    device="cpu").to_pandas()
+             for m in ("KB", "KB-w", "OLS")] +
             [ws_run(cat, None, None, "KB", batch_size=SWEEP_BATCH,
-                    device="cpu")]).reset_index(drop=True)
+                    device="cpu").to_pandas()]).reset_index(drop=True)
         return {"ws": ws,
                 "unet": unet_run(cat, UNET_WEIGHTS, "LSBR",
-                                 batch_size=SWEEP_BATCH, device="cpu"),
+                                 batch_size=SWEEP_BATCH,
+                                 device="cpu").to_pandas(),
                 "b0": b0_run(cat, B0_WEIGHTS, "LSBR",
-                             batch_size=SWEEP_BATCH, device="cpu")}
+                             batch_size=SWEEP_BATCH,
+                             device="cpu").to_pandas()}
 
     set_eval_devices(1)
     try:

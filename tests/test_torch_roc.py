@@ -4,7 +4,9 @@ package's meters, and ``roc_stats`` / ``produce_roc``
 (wsunet_tpu_torch.detect.roc) against ``wsunet_tpu.detect.produce_roc``.
 
 Every comparison is exact (``assert_array_equal`` / frame equality): both
-sides run the same float64 numpy arithmetic on the same scores."""
+sides run the same float64 numpy arithmetic on the same scores.  The
+port's table has no index, so the JAX frame is compared after
+``reset_index(drop=True)``."""
 
 import warnings
 
@@ -19,7 +21,7 @@ from wsunet_tpu.detect import metrics as jmetrics
 from wsunet_tpu.detect import produce_roc as jax_produce_roc
 from wsunet_tpu_torch.detect import metrics, produce_roc, roc_stats
 
-from torch_p128 import REPO
+from torch_p128 import REPO, frame
 
 GOLDEN = REPO / "weights" / "golden" / "p128_lsbr.npz"
 
@@ -94,7 +96,8 @@ def test_produce_roc_matches_jax(clip_covers):
     """clip_covers: every cover's clipped score is 0, so the FPR never
     moves and both sides take the tie-aware rank AUC."""
     df = _sweep_frame(np.random.default_rng(3), 40, clip_covers)
-    got, want = produce_roc(df), jax_produce_roc(df)
+    got = frame(produce_roc(df))
+    want = jax_produce_roc(df).reset_index(drop=True)
     pd.testing.assert_frame_equal(got, want)
     if clip_covers:
         assert got["auc"].notna().all() and (got["fpr"] == 0).all()
@@ -106,7 +109,8 @@ def test_roc_stats_single_class_is_nan():
     assert np.isnan(stats["auc"]) and np.isnan(stats["wauc"])
     df = pd.DataFrame({"stego_method": "LSBR", "alpha": 0.1,
                        "beta_hat": y_hat, "model_name": "KB"})
-    pd.testing.assert_frame_equal(produce_roc(df), jax_produce_roc(df))
+    pd.testing.assert_frame_equal(frame(produce_roc(df)),
+                                  jax_produce_roc(df).reset_index(drop=True))
 
 
 def test_roc_stats_on_golden_scores_equals_the_golden_summary():

@@ -5,6 +5,11 @@ against the JAX package's (``python -m wsunet_tpu ...``), on the CPU, over
 package's ``simulate``.  The port reads the exported runs under
 ``weights/unet``; JAX the Orbax checkpoints under ``models/unet``.
 
+The CLI also runs in a fresh interpreter where pandas, PIL, cv2,
+matplotlib and seaborn cannot be imported (the card's machine has none),
+and writes the same files; ``utils.table`` reads and writes the JAX CLI's
+files byte for byte as pandas does.
+
 CSV files are compared by parsed value: the same rows and columns in the
 same order, text columns equal, beta_hat within rtol 1e-4 / atol 1e-6 for
 the named filters (B2's tolerance), rtol 1e-4 / atol 1e-5 for -sca
@@ -18,8 +23,10 @@ import shutil
 import numpy as np
 import pandas as pd
 import pytest
+from PIL import Image
 
-from torch_p128 import REPO, make_catalog
+from torch_p128 import (REPO, frame, make_catalog,
+                        run_without_host_packages)
 from wsunet_tpu.cli import main as jax_main
 from wsunet_tpu.ws import unet_run as jax_unet_run
 from wsunet_tpu.ws import ws_run as jax_ws_run
@@ -48,6 +55,7 @@ def cat(tmp_path_factory):
 
 def _assert_rows_match(got: pd.DataFrame, want: pd.DataFrame):
     """Same columns, rows and text; numbers within the stated bounds."""
+    got, want = frame(got), frame(want)
     assert list(got.columns) == list(want.columns)
     assert len(got) == len(want)
     got, want = got.reset_index(drop=True), want.reset_index(drop=True)
@@ -90,7 +98,8 @@ def test_ws_run_matches_jax(cat, model, stego):
 
 
 def test_unet_run_matches_jax(cat):
-    got = unet_run(cat, PORT_MODELS, "LSBR", batch_size=5, device="cpu")
+    got = frame(unet_run(cat, PORT_MODELS, "LSBR", batch_size=5,
+                         device="cpu"))
     want = jax_unet_run(cat, JAX_MODELS, "LSBR", batch_size=5)
     assert len(got) == 36 and got["beta_hat"].notna().all()
     _assert_rows_match(got, want)
@@ -139,6 +148,90 @@ def test_cli_roc_tables_equal_jax(cli_outputs, name):
                                               "KB-w", "UNet"]
     png = cli_outputs["torch"] / f"detection/roc_{ALPHAS[-1]}.png"
     assert png.stat().st_size > 0
+
+
+@pytest.fixture(scope="module")
+def blocked_outputs(cat, tmp_path_factory):
+    """``cli_outputs``' three port commands, each in a fresh interpreter
+    without pandas, PIL, cv2, matplotlib or seaborn; their stderr."""
+    res = tmp_path_factory.mktemp("blocked")
+    common = ["--data", cat, "--results", res, "--device", "cpu"]
+    errs = [run_without_host_packages(
+        [cmd, *common, *extra], res).stderr for cmd, extra in (
+            ("ws-eval", ["--models", "KB", "KB-w", "KB-sca", "UNet",
+                         "--model-dir", PORT_MODELS, "--alphas", *ALPHAS]),
+            ("unet-eval", ["--model-dir", PORT_MODELS]),
+            ("roc", ["--unet-model-dir", PORT_MODELS, "--alphas",
+                     *ALPHAS]))]
+    return res, errs
+
+
+@pytest.mark.parametrize("name", ["estimation/ws_sweep_LSBR.csv",
+                                  "estimation/ws_LSBR.csv",
+                                  f"detection/auc_{ALPHAS[-1]}.csv",
+                                  f"detection/roc_{ALPHAS[-1]}.csv"])
+def test_cli_without_host_packages_matches_jax(cli_outputs, blocked_outputs,
+                                               name):
+    """Where pandas, PIL, cv2 and matplotlib cannot be imported, ``ws-eval``,
+    ``unet-eval`` and ``roc`` write the JAX CLI's files (the comparisons
+    above); ``roc`` says on stderr that it drew no figure."""
+    res, errs = blocked_outputs
+    got = pd.read_csv(res / name)
+    want = pd.read_csv(cli_outputs["jax"] / name)
+    if name.startswith("detection"):
+        pd.testing.assert_frame_equal(got, want)
+    else:
+        _assert_rows_match(got, want)
+    assert f"roc_{ALPHAS[-1]}.png not drawn" in errs[2]
+    assert not (res / "detection" / f"roc_{ALPHAS[-1]}.png").exists()
+
+
+@pytest.mark.parametrize("name", ["estimation/ws_sweep_LSBR.csv",
+                                  "estimation/ws_LSBR.csv",
+                                  f"detection/auc_{ALPHAS[-1]}.csv",
+                                  f"detection/roc_{ALPHAS[-1]}.csv"])
+def test_table_round_trip_equals_pandas_on_the_jax_cli_outputs(cli_outputs,
+                                                              name):
+    """``utils.table.read_csv`` then ``to_csv`` writes what pandas writes
+    for the JAX CLI's files, byte for byte, and reads the same frame."""
+    from wsunet_tpu_torch.utils import table
+
+    path = cli_outputs["jax"] / name
+    t, df = table.read_csv(path), pd.read_csv(path)
+    assert t.to_csv() == df.to_csv(index=False)
+    pd.testing.assert_frame_equal(t.to_pandas(), df)
+
+
+def test_simulate_without_host_packages_writes_the_ports_files(cat,
+                                                              tmp_path):
+    """``simulate`` where PIL and pandas cannot be imported writes the
+    same PNG bytes as in a process that has them (the port's own writer
+    and draws) and the JAX CLI's ``files.csv``; PIL reads each stego image
+    as the port's reader does."""
+    from wsunet_tpu_torch.io.png import read_png
+
+    roots = {}
+    for side in ("blocked", "inproc"):
+        roots[side] = tmp_path / side
+        (roots[side] / "images").mkdir(parents=True)
+        for f in (cat / "images").iterdir():
+            shutil.copyfile(f, roots[side] / "images" / f.name)
+    args = ["simulate", "--method", "LSBr", "--alphas", *ALPHAS, "--device",
+            "cpu"]
+    run_without_host_packages([*args, "--data", roots["blocked"]], tmp_path)
+    assert torch_main([*args, "--data", str(roots["inproc"])]) == 0
+    for alpha in ALPHAS:
+        sub = f"stego_LSBr_alpha_{alpha}_independent_images"
+        pd.testing.assert_frame_equal(
+            pd.read_csv(roots["blocked"] / sub / "files.csv"),
+            pd.read_csv(cat / sub / "files.csv"))
+        pngs = sorted((roots["blocked"] / sub).glob("*.png"))
+        assert len(pngs) == 12
+        for p in pngs:
+            assert p.read_bytes() == \
+                (roots["inproc"] / sub / p.name).read_bytes()
+            with Image.open(p) as im:
+                np.testing.assert_array_equal(np.array(im), read_png(p))
 
 
 def test_cli_errors_are_one_line(cat, tmp_path, capsys):
@@ -196,8 +289,8 @@ def test_fast_conv_reaches_b1_from_the_cli(cat, tmp_path, monkeypatch):
     _assert_rows_match(got_ws, want_ws)
 
 
-def _csv(df: pd.DataFrame, path):
-    df.to_csv(path, index=False)
+def _csv(df, path):
+    frame(df).to_csv(path, index=False)
     return path
 
 

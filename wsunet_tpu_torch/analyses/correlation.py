@@ -133,10 +133,11 @@ def run_correlation(
     import pandas as pd
 
     from ..data.catalog import cover_stego_pairs
+    from ..utils.table import isna
 
     df = cover_stego_pairs(data_path, stego_method=stego_method, alpha=alpha,
                            split=split, take_num_images=take_num_images)
-    df = df[~df["name_s"].isna()]
+    df = df[~isna(df["name_s"])]
     res = pd.DataFrame(correlation_rows(
         data_path, list(df["name_c"]), list(df["name_s"]),
         filter_names=filter_names,

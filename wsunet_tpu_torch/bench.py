@@ -44,10 +44,11 @@ Also reported:
 - the serving latency (card only): ``serve.UNetWSServer`` in bf16 on the
   headline's model and route, ``serve.measure_latency``; a failure raises.
 - ``decode_only`` and ``e2e_decode`` (the latter on the card only): PNG
-  decode rates of the native loader against PIL over the covers of
-  ``root`` (default ``data_ablation/p128``; JAX reads a fixed path).  A
-  section is ``{"unavailable": ...}`` when, and only when, pandas, PIL or
-  the native loader is missing; any other failure raises.
+  decode rates of the port's reader (``io.png``, the pipeline's) over the
+  covers of ``root`` (default ``data_ablation/p128``; JAX reads a fixed
+  path), with PIL's and the native loader's beside them where those load
+  (``"pil"`` / ``"native"``: ``{"unavailable": ...}`` where one does
+  not); any failure of a decoder that loads raises.
 - floors (card only): ``floor_value`` / ``floor_mfu`` and ``ws_fused``'s
   ``floor_images_per_sec``, each about 0.8 x the lowest of the port's own
   runs on an NVIDIA H100 80GB HBM3 at 700 W, for the configurations in
@@ -56,8 +57,8 @@ Also reported:
 
 ``device=None`` means CUDA and raises ``UserError`` without a card.
 ``device="cpu"`` takes JAX's smallest honest sizes (B=2, iters 2, warmup
-1) and runs no latency, ``ws_fused`` or ``e2e_decode`` section.  pandas
-and PIL are imported inside the decode sections only.
+1) and runs no latency, ``ws_fused`` or ``e2e_decode`` section.  PIL is
+imported inside the decode sections only, for their comparison.
 """
 
 import json
@@ -247,102 +248,140 @@ def _bench_ws_fused(device, iters: int = None,
     return out
 
 
-def _no_decoder() -> dict:
-    """A decode section's record where the native decoder did not build
-    or load: the first line of why."""
+def _pil_gray(path) -> np.ndarray:
+    """PIL's array of a grayscale PNG (the comparison's reader)."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def _others() -> tuple:
+    """The comparison decoders that load here, by name (``pil``,
+    ``native``), and a record ``{"unavailable": why}`` for each that does
+    not."""
     from .io import native
 
-    why = native.build_error().strip().splitlines()
-    return {"unavailable": "native PNG decoder" +
-                           (f" ({why[0]})" if why else "")}
-
-
-def _bench_decode_only(root=None, repeats: int = 40) -> dict:
-    """Host PNG decode rate of the native loader over ``root``'s covers
-    (ms an image, best of 5), against PIL's under the same load; the floor
-    is relative: ``speedup_vs_pil >= 2``.  Pure host work, so it runs on
-    every device."""
+    found, missing = {}, {}
     try:
         import PIL  # noqa: F401 -- the reader of the comparison
+        found["pil"] = _pil_gray
     except ImportError as e:
-        return {"unavailable": f"PIL ({e})"}
-    from .data import pipeline
-    from .io import imread_gray_u8
+        missing["pil"] = {"unavailable": f"PIL ({e})"}
+    if native.available():
+        found["native"] = native
+    else:
+        why = native.build_error().strip().splitlines()
+        missing["native"] = {"unavailable": "native PNG decoder" +
+                             (f" ({why[0]})" if why else "")}
+    return found, missing
 
-    native = pipeline._get_native()
-    if native is None:
-        return _no_decoder()
+
+def _covers(root) -> list:
     root = pathlib.Path(DEFAULT_DATA if root is None else root)
     paths = sorted((root / "images").glob("*.png"))
     if not paths:
         raise FileNotFoundError(f"no PNG covers under {root / 'images'}")
+    return paths
+
+
+def _ms_per_image(decode, paths, repeats: int) -> float:
+    """Best of 5 of ``repeats`` passes of ``decode(paths)``, in ms an
+    image; a pass that loses an image raises."""
     best = float("inf")
     for _ in range(5):
         t0 = time.perf_counter()
         for _ in range(repeats):
-            if native.decode_gray_batch(paths, threads=1) is None:
-                raise RuntimeError(f"the native decoder failed on "
-                                   f"{root / 'images'}")
+            out = decode(paths)
+            if out is None or any(d is None for d in out):
+                raise RuntimeError(f"a decode failed under "
+                                   f"{paths[0].parent}")
         best = min(best, (time.perf_counter() - t0) / (repeats * len(paths)))
-    # relative to PIL measured under the same machine load: an absolute
-    # floor trips on a busy host, while a fast path degraded to a
-    # PIL-class decode halves the ratio whatever the load
-    passes = max(1, repeats // 8)
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        for p in paths:
-            np.asarray(imread_gray_u8(p))
-    pil = (time.perf_counter() - t0) / (passes * len(paths))
-    speedup = pil / best
-    return {"decode_ms_per_img": best * 1e3,
-            "pil_ms_per_img": pil * 1e3,
-            "images": len(paths),
-            "speedup_vs_pil": speedup,
-            "floor_speedup": 2.0,
-            "floor_ok": bool(speedup >= 2.0)}
+    return best * 1e3
+
+
+def _bench_decode_only(root=None, repeats: int = 8,
+                       threads: int = 8) -> dict:
+    """Host PNG decode over ``root``'s covers by the port's reader
+    (``io.png``, the pipeline's decode) at 1 thread and at ``threads``
+    (``data.pipeline._decode_many``'s pool), in ms an image (best of 5);
+    beside it PIL's and the native loader's where they load, and
+    ``{"unavailable": ...}`` for either alone where it does not.  The
+    floor ``speedup_vs_pil >= 2`` (io.png against PIL, one thread each,
+    under the same load) applies where PIL is present.  Pure host work,
+    so it runs on every device."""
+    from .data import pipeline
+    from .io import imread_gray_u8
+
+    paths = _covers(root)
+    out = {"reader": "io.png", "images": len(paths), "threads": threads}
+    out["decode_ms_per_img"] = _ms_per_image(
+        lambda ps: [imread_gray_u8(p) for p in ps], paths, repeats)
+    out["decode_ms_per_img_threads"] = _ms_per_image(
+        lambda ps: pipeline._decode_many(ps, imread_gray_u8, threads),
+        paths, repeats)
+    found, missing = _others()
+    out.update(missing)
+    if "pil" in found:
+        pil = _ms_per_image(lambda ps: [_pil_gray(p) for p in ps], paths,
+                            max(1, repeats // 4))
+        out["pil_ms_per_img"] = pil
+        out["speedup_vs_pil"] = pil / out["decode_ms_per_img"]
+        out["floor_speedup"] = 2.0
+        out["floor_ok"] = bool(out["speedup_vs_pil"] >= 2.0)
+    if "native" in found:
+        native = found["native"]
+        out["native_ms_per_img"] = _ms_per_image(
+            lambda ps: native.decode_gray_batch(ps, threads=1), paths,
+            repeats)
+        out["native_ms_per_img_threads"] = _ms_per_image(
+            lambda ps: native.decode_gray_batch(ps, threads=threads),
+            paths, repeats)
+    return out
 
 
 def _bench_e2e_decode(model, root=None, device=None, batch_size: int = 32,
                       repeats: int = 4) -> dict:
     """PNG on disk -> beta_hat img/s with the host decode in the clock
     (what the headline leaves out): the catalog of ``root`` ``repeats``
-    times over, decode cache off, by the native loader and by PIL; then
-    ``repeats`` sweeps with the decode and device caches on, the cold
-    cache in the clock."""
-    try:
-        import pandas  # noqa: F401 -- collect_files reads files.csv
-        import PIL  # noqa: F401 -- the PIL pass
-    except ImportError as e:
-        return {"unavailable": f"{e.name} ({e})"}
+    times over, decode cache off, read by ``io.png``
+    (``png_images_per_sec``), and by PIL and the native loader where they
+    load (``{"unavailable": ...}`` where not); then ``repeats`` sweeps on
+    ``io.png`` with the decode and device caches on, the cold cache in the
+    clock."""
     from .data import iterate_batches, pipeline
     from .data.catalog import collect_files
+    from .io import imread_gray_u8
 
-    if pipeline._get_native() is None:
-        return _no_decoder()
     dev = resolve_device(device)
     root = pathlib.Path(DEFAULT_DATA if root is None else root)
     df = collect_files(root, ["images*", "stego*"])
     names = list(df["name"])
     step = make_step(model, dev)
     # warm at the catalog's own shape, outside the clock
-    step(torch.zeros((batch_size, int(df["height"].iloc[0]),
-                      int(df["width"].iloc[0])), dtype=torch.uint8,
-                     device=dev))
+    step(torch.zeros((batch_size, int(df["height"][0]),
+                      int(df["width"][0])), dtype=torch.uint8, device=dev))
     _sync(dev)
 
-    out = {"images": len(names) * repeats}
+    found, missing = _others()
+    out = {"images": len(names) * repeats, **missing}
+    routes = [("png", imread_gray_u8, False)]
+    if "pil" in found:
+        routes.append(("pil", found["pil"], False))
+    if "native" in found:
+        routes.append(("native", imread_gray_u8, True))
     try:
-        for label, use_native in (("native", True), ("pil", False)):
+        for label, reader, use_native in routes:
             pipeline.force_native(use_native)
             t0 = time.perf_counter()
             done = [step(to_device(b.pixels, dev)) for b in iterate_batches(
-                root, names * repeats, batch_size, prefetch=2, cache=False)]
+                root, names * repeats, batch_size, reader=reader, prefetch=2,
+                cache=False)]
             _sync(dev)
             out[f"{label}_images_per_sec"] = \
                 len(names) * repeats / (time.perf_counter() - t0)
         # the sweeps visit one catalog once per (model, method, alpha) and
         # decode each image once (the decode cache)
-        pipeline.force_native(True)
+        pipeline.force_native(False)
         pipeline.clear_decode_cache()
         t0 = time.perf_counter()
         done = []
@@ -356,7 +395,7 @@ def _bench_e2e_decode(model, root=None, device=None, batch_size: int = 32,
             len(names) * repeats / (time.perf_counter() - t0)
         out["sweep_passes"] = repeats
     finally:
-        pipeline.force_native(None)
+        pipeline.force_native(False)
         pipeline.clear_decode_cache()
     return out
 

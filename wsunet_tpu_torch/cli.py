@@ -42,8 +42,14 @@ U-Net's 3x3 convs through kernel B1 instead of cuDNN.  ``ws-eval --models
 OLS`` fits the OLS predictor on the covers, in the colour layouts for two
 or three ``--channels``.  ``simulate --method LSBr`` draws from torch
 generators seeded per image as the JAX CLI seeds its keys, so its stego
-pixels are not the JAX CLI's (HILLr's are).  pandas, PIL, matplotlib and
-seaborn are imported by the commands.  The sweeps (``ws-eval``,
+pixels are not the JAX CLI's (HILLr's are).  The detection path
+(``simulate``, ``ws-eval``, ``unet-eval``, ``detector-eval``,
+``filters-eval``, ``roc`` and ``serve``) needs only torch, numpy, the
+standard library and g++: it reads and writes PNGs with ``io.png`` and
+its CSVs are ``utils.table`` tables; ``roc`` writes its tables first and
+draws ``roc_<alpha>.png`` only where matplotlib imports (else one line on
+stderr).  The other commands import pandas, PIL, matplotlib and seaborn
+where they need them.  The sweeps (``ws-eval``,
 ``unet-eval``, ``detector-eval``, ``roc``) and the trainers use every
 rank they are started with (``parallel.distributed.distributed_init``:
 ``torchrun --nproc-per-node N -m wsunet_tpu_torch ...``; without
@@ -276,9 +282,10 @@ def _rank0() -> bool:
 
 
 def _write_csv(res, out):
+    """Write the table ``res`` to ``out`` (rank 0 alone)."""
     if _rank0():
         out.parent.mkdir(parents=True, exist_ok=True)
-        res.to_csv(out, index=False)
+        res.to_csv(out)
         print(f"output saved to {out}")
 
 
@@ -303,7 +310,7 @@ def _run(args):
                           take_num_images=args.take, device=args.device)
         out = args.results / "prediction" / "filters.csv"
         out.parent.mkdir(parents=True, exist_ok=True)
-        res.to_csv(out, index=False)
+        res.to_csv(out)
         print(f"output saved to {out}")
     elif cmd == "ws-eval":
         _write_csv(_ws_sweep(args), args.results / "estimation" /
@@ -433,9 +440,8 @@ def _ws_sweep(args):
     """Named filters plus both trained U-Nets, UNet_l1 (dropout-trained)
     and UNet_l1ws_<method>, in one run.  'UNet' in --models expands to
     both; 'UNet_l1' / 'UNet_l1ws' select one."""
-    import pandas as pd
-
     from .utils.registry import get_model_name
+    from .utils.table import concat, fillna
     from .ws import ws_run
 
     unet_variants = {
@@ -475,9 +481,9 @@ def _ws_sweep(args):
                         split=args.split, take_num_images=args.take,
                         model_label=label, fast_conv=args.fast_conv,
                         device=args.device))
-    res = pd.concat(frames).reset_index(drop=True)
+    res = concat(frames)
     if "stego_method" in res:
-        res["stego_method"] = res["stego_method"].fillna("Cover")
+        res["stego_method"] = fillna(res["stego_method"], "Cover")
     else:
         res["stego_method"] = "Cover"
     return res
@@ -502,9 +508,12 @@ def _b0_frames(args) -> list:
     """The rows of both B0 configurations (strided; no stem stride with
     the LSBr reference) trained on --train-method, labelled by
     ``b0_label``; a configuration without a run is skipped with a note."""
+    import numpy as np
+
     from .detect import b0_run
     from .train.checkpoint import load_config
     from .utils.registry import get_model_name
+    from .utils.table import isna
 
     frames = []
     for no_stride, lsbr_ref in [(False, False), (True, True)]:
@@ -524,8 +533,8 @@ def _b0_frames(args) -> list:
                   file=sys.stderr)
             continue
         config = load_config(args.b0_model_dir / args.train_method / name)
-        res = res[(res["stego_method"].isna()) |
-                  (res["alpha"].isin(args.alphas))].copy()
+        res = res[isna(res["stego_method"]) |
+                  np.isin(res["alpha"], args.alphas)]
         res["model_name"] = b0_label(config)
         res["score"] = res["output"]
         frames.append(res)
@@ -533,10 +542,10 @@ def _b0_frames(args) -> list:
 
 
 def _cmd_roc(args):
-    import pandas as pd
-
     from .detect import produce_roc
+    from .detect.roc import roc_curves
     from .utils.registry import get_model_name
+    from .utils.table import concat, fillna
     from .ws import ws_run
     # "UNet" is the --train-method model on every eval method; another
     # method of --stego-methods with its own trained model joins as
@@ -577,9 +586,9 @@ def _cmd_roc(args):
     if args.b0:
         frames += _b0_frames(args)
 
-    res = pd.concat(frames).reset_index(drop=True)
-    res["stego_method"] = res["stego_method"].fillna("Cover")
-    res["alpha"] = res["alpha"].fillna(0.0)
+    res = concat(frames)
+    res["stego_method"] = fillna(res["stego_method"], "Cover")
+    res["alpha"] = fillna(res["alpha"], 0.0)
     df_roc = produce_roc(res)
     if not _rank0():
         return
@@ -590,42 +599,49 @@ def _cmd_roc(args):
     df_auc = df_roc[["stego_method", "model_name", "auc", "p_e", "wauc",
                      "pmd_5fp", "tau0", "fpr_tau0", "tpr_tau0", "fpr_50",
                      "tpr_50"]].drop_duplicates()
-    df_auc.to_csv(outdir / f"auc_{alpha}.csv", index=False)
-    pivot = df_roc.pivot(index=["tau"],
-                         columns=["stego_method", "model_name"],
-                         values=["tpr", "fpr"])
-    pivot.columns = ["_".join(c).strip() for c in pivot.columns.values]
-    pivot.to_csv(outdir / f"roc_{alpha}.csv", index=False)
+    df_auc.to_csv(outdir / f"auc_{alpha}.csv")
+    roc_curves(df_roc).to_csv(outdir / f"roc_{alpha}.csv")
+    _plot_roc(df_roc, outdir / f"roc_{alpha}.png")
+    print(df_auc.to_string())
+    print(f"outputs saved to {outdir}")
 
-    import matplotlib
+
+def _plot_roc(df_roc, out):
+    """The curves of every detector in one figure, where matplotlib is
+    installed; without it, one line on stderr says the figure was not
+    drawn (the tables are written before)."""
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"roc: matplotlib is not installed; {out.name} not drawn",
+              file=sys.stderr)
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
     fig, ax = plt.subplots()
-    for label, df_i in df_roc.groupby("label"):
-        df_i = df_i.sort_values("tau")
+    for (label,), df_i in df_roc.groups("label"):
+        df_i = df_i.sort("tau")
         ax.plot(df_i["fpr"], df_i["tpr"], label=label)
     ax.plot([0, 1], [0, 1], linestyle="--", color="gray", label="Random")
     ax.set_xlabel("False Positive Rate (FPR)")
     ax.set_ylabel("True Positive Rate (TPR)")
     ax.legend(loc="lower right")
-    fig.savefig(outdir / f"roc_{alpha}.png", bbox_inches="tight", dpi=300)
+    fig.savefig(out, bbox_inches="tight", dpi=300)
     plt.close(fig)
-    print(df_auc.to_string())
-    print(f"outputs saved to {outdir}")
 
 
 def _cmd_simulate(args):
-    """Stego copies of every cover at each alpha, one PNG each and a
-    ``files.csv``, in the JAX CLI's layout; each image is embedded on
-    ``--device`` with its own generator (``data.simulate.image_key``)."""
-    import pandas as pd
-    from PIL import Image
-
+    """Stego copies of every cover at each alpha, one PNG each (written
+    by ``io.png.write_png``) and a ``files.csv``, in the JAX CLI's layout;
+    each image is embedded on ``--device`` with its own generator
+    (``data.simulate.image_key``)."""
     import torch
 
     from ._device import resolve_device
     from .data import load_images, precovers
     from .data.simulate import image_key, simulate
+    from .io.png import write_png
+    from .utils.table import from_rows
 
     dev = resolve_device(args.device)
     df = precovers(args.data)
@@ -641,11 +657,11 @@ def _cmd_simulate(args):
             stego = simulate(x, args.method, alpha,
                              image_key(name, device=dev))[0].cpu().numpy()
             base = pathlib.Path(name).name
-            Image.fromarray(stego).save(outdir / base)
+            write_png(outdir / base, stego)
             rows.append({"name": f"{outdir.name}/{base}",
                          "height": stego.shape[0], "width": stego.shape[1],
                          "stego_method": method, "alpha": alpha})
-        pd.DataFrame(rows).to_csv(outdir / "files.csv", index=False)
+        from_rows(rows).to_csv(outdir / "files.csv")
         print(f"wrote {len(rows)} stego images to {outdir}")
 
 

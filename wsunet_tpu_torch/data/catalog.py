@@ -1,8 +1,8 @@
 """Dataset catalog (port of ``wsunet_tpu/data/catalog.py``).
 
-The catalog is data only: pandas DataFrames of ``files.csv`` rows, with
-the JAX package's predicates, columns, sort order and shuffle.  pandas is
-imported inside the functions (the card's machine has none).
+The catalog is data only: tables (``utils.table.Table``) of ``files.csv``
+rows, with the JAX package's predicates, columns, sort order and shuffle;
+they hold what the JAX package's DataFrames hold, without pandas.
 
 ``resolve_path`` matches path components case-insensitively: files.csv
 rows say ``stego_LSBR_...`` while the directories are ``stego_LSBr_...``.
@@ -11,6 +11,10 @@ rows say ``stego_LSBR_...`` while the directories are ``stego_LSBr_...``.
 import glob
 import pathlib
 import typing
+
+import numpy as np
+
+from ..utils.table import Table, concat, isna, read_csv, take
 
 
 def resolve_path(root: pathlib.Path, name: str) -> pathlib.Path:
@@ -33,35 +37,34 @@ def resolve_path(root: pathlib.Path, name: str) -> pathlib.Path:
 
 
 def collect_files(dataset: pathlib.Path, patterns: typing.Sequence[str],
-                  split: str = None, ignore_missing: bool = False):
+                  split: str = None, ignore_missing: bool = False) -> Table:
     """files.csv rows under ``dataset`` for the glob patterns, or the rows
     of a split CSV."""
-    import pandas as pd
-
     dataset = pathlib.Path(dataset)
     if split is not None:
-        return pd.read_csv(dataset / split, dtype={"device": str})
-    frames = []
+        return read_csv(dataset / split, dtype={"device": str})
+    tables = []
     for pattern in patterns:
         for path in glob.glob(str(dataset / pattern)):
             try:
-                frames.append(pd.read_csv(pathlib.Path(path) / "files.csv"))
+                tables.append(read_csv(pathlib.Path(path) / "files.csv"))
             except Exception:
                 if not ignore_missing:
                     raise
-    if not frames:
+    if not tables:
         raise FileNotFoundError(
             f"no files.csv found under {dataset} for patterns {patterns}")
-    return pd.concat(frames)
+    return concat(tables)
 
 
-def order_rows(df, shuffle_seed: int = None, skip_num_images: int = None,
-               take_num_images: int = None):
+def order_rows(df: Table, shuffle_seed: int = None,
+               skip_num_images: int = None,
+               take_num_images: int = None) -> Table:
     """Sort by name, then an optional shuffle (seed 0 is a seed), skip and
     take."""
-    df = df.sort_values("name").reset_index(drop=True)
+    df = df.sort("name")
     if shuffle_seed is not None:
-        df = df.sample(frac=1.0, random_state=shuffle_seed)
+        df = df.shuffle(shuffle_seed)
     if skip_num_images is not None:
         df = df[skip_num_images:]
     if take_num_images is not None:
@@ -69,30 +72,30 @@ def order_rows(df, shuffle_seed: int = None, skip_num_images: int = None,
     return df
 
 
-def _filter_demosaic(df, demosaic):
+def _filter_demosaic(df: Table, demosaic) -> Table:
     if demosaic is None:
         return df
     if isinstance(demosaic, str):
         return df[df["demosaic"] == demosaic]
-    return df[df["demosaic"].isin(demosaic)]
+    return df[np.isin(df["demosaic"], list(demosaic))]
 
 
 def precovers(dataset: pathlib.Path, demosaic=None, split: str = None,
-              ignore_missing: bool = False, **order_kw):
+              ignore_missing: bool = False, **order_kw) -> Table:
     """Uncompressed cover images."""
     df = collect_files(dataset, ["images*"], split=split,
                        ignore_missing=ignore_missing)
     df = _filter_demosaic(df, demosaic)
     if "stego_method" in df:
-        df = df[df["stego_method"].isna()]
+        df = df[isna(df["stego_method"])]
     if "quality" in df:
-        df = df[df["quality"].isna()]
+        df = df[isna(df["quality"])]
     return order_rows(df, **order_kw)
 
 
 def covers(dataset: pathlib.Path, quality: int = None,
            samp_factor: str = None, split: str = None,
-           ignore_missing: bool = False, **order_kw):
+           ignore_missing: bool = False, **order_kw) -> Table:
     """JPEG cover images."""
     df = collect_files(dataset, ["jpegs*"], split=split,
                        ignore_missing=ignore_missing)
@@ -103,7 +106,8 @@ def covers(dataset: pathlib.Path, quality: int = None,
     return order_rows(df, **order_kw)
 
 
-def _filter_stego(df, stego_method, alpha, color_strategy, simulator):
+def _filter_stego(df: Table, stego_method, alpha, color_strategy,
+                  simulator) -> Table:
     if stego_method is not None:
         df = df[df["stego_method"] == stego_method]
     if alpha is not None:
@@ -118,7 +122,7 @@ def _filter_stego(df, stego_method, alpha, color_strategy, simulator):
 def stego_spatial(dataset: pathlib.Path, stego_method: str = None,
                   alpha: float = None, color_strategy: str = None,
                   simulator: str = None, demosaic=None, split: str = None,
-                  ignore_missing: bool = False, **order_kw):
+                  ignore_missing: bool = False, **order_kw) -> Table:
     """Spatial-domain stego images (``alpha`` compared as the float read
     from the CSV)."""
     df = collect_files(dataset, ["stego*"], split=split,
@@ -126,31 +130,61 @@ def stego_spatial(dataset: pathlib.Path, stego_method: str = None,
     df = _filter_demosaic(df, demosaic)
     df = _filter_stego(df, stego_method, alpha, color_strategy, simulator)
     if "quality" in df:
-        df = df[df["quality"].isna()]
+        df = df[isna(df["quality"])]
     return order_rows(df, **order_kw)
+
+
+def _stems(names) -> list:
+    return [pathlib.Path(f).stem for f in names]
+
+
+def _merge_left(left: Table, right: Table, on: str,
+                suffixes=("_c", "_s")) -> Table:
+    """``left.merge(right, how="left", on=on, suffixes=suffixes)``: each
+    left row with each right row of its key, in order (NaN where none);
+    columns both sides hold take the suffixes."""
+    by_key = {}
+    for j, key in enumerate(right[on]):
+        by_key.setdefault(key, []).append(j)
+    li, ri = [], []
+    for i, key in enumerate(left[on]):
+        for j in by_key.get(key, [-1]):
+            li.append(i)
+            ri.append(j)
+    li, ri = np.asarray(li, np.int64), np.asarray(ri, np.int64)
+    both = set(left.columns) & set(right.columns) - {on}
+    out = Table(n=len(li))
+    for name in left.columns:
+        out[name + suffixes[0] if name in both else name] = left[name][li]
+    for name in right.columns:
+        if name != on:
+            out[name + suffixes[1] if name in both else name] = \
+                take(right[name], ri)
+    return out
 
 
 def cover_stego_pairs(dataset: pathlib.Path, stego_method: str = None,
                       alpha: float = None, color_strategy: str = None,
                       simulator: str = None, demosaic=None,
                       split: str = None, ignore_missing: bool = False,
-                      **order_kw):
+                      **order_kw) -> Table:
     """Cover-stego pairs joined by filename stem, sorted by the cover's
     stem."""
     df = collect_files(dataset, ["images*", "stego*"], split=split,
                        ignore_missing=ignore_missing)
     df = _filter_demosaic(df, demosaic)
     if "quality" in df:
-        df = df[df["quality"].isna()]
+        df = df[isna(df["quality"])]
 
-    df_c = df[df["stego_method"].isna()].copy()
-    df_s = _filter_stego(df[~df["stego_method"].isna()].copy(),
-                         stego_method, alpha, color_strategy, simulator)
+    cover = isna(df["stego_method"])
+    df_c = df[cover].copy()
+    df_s = _filter_stego(df[~cover].copy(), stego_method, alpha,
+                         color_strategy, simulator)
 
-    df_c["stem"] = df_c["name"].apply(lambda f: pathlib.Path(f).stem)
-    df_s["stem"] = df_s["name"].apply(lambda f: pathlib.Path(f).stem)
-    df = df_c.merge(df_s, how="left", on=["stem"], suffixes=("_c", "_s"))
+    df_c["stem"] = _stems(df_c["name"])
+    df_s["stem"] = _stems(df_s["name"])
+    df = _merge_left(df_c, df_s, "stem")
     df["name"] = df["name_c"]
-    df = order_rows(df.drop("stem", axis=1), **order_kw)
-    df["stem"] = df["name_c"].apply(lambda f: pathlib.Path(f).stem)
-    return df.sort_values(["stem", "name_c"]).drop("stem", axis=1)
+    df = order_rows(df.drop("stem"), **order_kw)
+    df["stem"] = _stems(df["name_c"])
+    return df.sort(["stem", "name_c"]).drop("stem")

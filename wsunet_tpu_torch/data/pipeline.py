@@ -6,8 +6,10 @@ uint8 batches with a validity mask:
 the tail batch repeats its first image, and an image that fails to decode
 is a zero image with its mask False (the sweeps turn it into a NaN row).
 Decoding runs in a background thread one or more batches ahead
-(``prefetch``), with the native PNG decoder (``io.native``) where it built
-and PIL threads otherwise.
+(``prefetch``), each batch decoded by a pool of ``threads`` threads with
+the port's PNG reader (``io.png``: stdlib zlib and its own unfilter, both
+outside the GIL) on every machine; the JAX package's native decoder
+(``io.native``) is used only where ``force_native(True)`` asks for it.
 
 Two caches, both keyed by path and bounded by bytes:
 
@@ -17,8 +19,8 @@ Two caches, both keyed by path and bounded by bytes:
   tensors on the device, so a sweep's later passes start at the device.
   A batch with a failed decode is never cached.
 
-The pipeline takes a list of names, not a DataFrame, so that it runs where
-pandas is not installed; ``sweep_batches`` maps a per-batch step over it
+The pipeline takes a list of image names (a catalog table's ``name``
+column); ``sweep_batches`` maps a per-batch step over it
 and gives NaN rows where a decode failed.  Under a process group it is
 rank-sharded (``parallel.eval_shard``): each rank sweeps its own rows and
 the rows are all-gathered back into order; the device cache is then off.
@@ -40,6 +42,7 @@ import numpy as np
 
 from .._device import resolve_device, to_device
 from ..io.imread import imread_gray_u8
+from ..utils.errors import UserError
 from .catalog import resolve_path
 
 
@@ -88,34 +91,42 @@ def clear_device_cache():
         _DEVICE_CACHE_BYTES = 0
 
 
-_NATIVE = None
-_NATIVE_TRIED = False
-
-
-def _get_native():
-    global _NATIVE, _NATIVE_TRIED
-    if not _NATIVE_TRIED:
-        _NATIVE_TRIED = True
-        from ..io import native
-        if native.available():
-            _NATIVE = native
-    return _NATIVE
+_FORCE_NATIVE = False
 
 
 def force_native(enabled):
-    """Pin the decode backend: ``False`` PIL threads, ``True`` re-probe
-    the native decoder, ``None`` automatic."""
-    global _NATIVE, _NATIVE_TRIED
-    _NATIVE, _NATIVE_TRIED = None, False
-    if enabled is False:
-        _NATIVE_TRIED = True
-    elif enabled is True:
-        _get_native()
+    """Decode through ``io.native``'s batch calls (``True``; the bench
+    compares it with the port's reader), or through the reader given
+    (``False`` or ``None``: ``io.png``, the default).  The native decoder
+    needs libpng and libdeflate; forced where it does not build, a decode
+    raises."""
+    global _FORCE_NATIVE
+    _FORCE_NATIVE = bool(enabled)
+
+
+def _decode_native(paths, reader, threads: int) -> typing.List[np.ndarray]:
+    """``io.native``'s batch call for ``reader``'s layout; a batch with a
+    failed image is decoded one image a call, a failure giving None."""
+    from ..io import native
+
+    if not native.available():
+        raise RuntimeError(f"io.native was forced but does not build: "
+                           f"{native.build_error()}")
+    batch_call = getattr(native, {
+        "imread_gray_u8": "decode_gray_batch",
+        "imread4_u8": "decode_rgby_batch"}[reader.__name__])
+    out = batch_call([str(p) for p in paths], threads)
+    if out is None:
+        out = [(batch_call([str(p)], 1) or [None])[0] for p in paths]
+    return out
 
 
 def _decode_many(paths, reader, threads: int,
                  cache: bool = False) -> typing.List[np.ndarray]:
-    """Decode every path; a failed decode gives None."""
+    """Decode every path with ``reader`` in a pool of ``threads`` threads
+    (``io.png`` releases the GIL while it inflates and unfilters); a file
+    that fails to decode gives None.  ``UserError`` (a format the reader
+    does not take) is raised, not turned into a failed image."""
     global _DECODE_CACHE_BYTES
     # more decode threads than cores is a loss from contention alone
     threads = max(1, min(threads, os.cpu_count() or 1))
@@ -139,18 +150,14 @@ def _decode_many(paths, reader, threads: int,
                     _DECODE_CACHE_BYTES += new_bytes
             return [_DECODE_CACHE.get(k, lookup.get(k)) for k in keys]
         return [_DECODE_CACHE[k] for k in keys]
-    native = _get_native()
-    name = getattr(reader, "__name__", "")
-    batch_call = {"imread_gray_u8": "decode_gray_batch",
-                  "imread4_u8": "decode_rgby_batch"}.get(name)
-    if native is not None and batch_call is not None:
-        out = getattr(native, batch_call)([str(p) for p in paths], threads)
-        if out is not None:
-            return out
+    if _FORCE_NATIVE and paths:
+        return _decode_native(paths, reader, threads)
 
     def safe(p):
         try:
             return reader(p)
+        except UserError:
+            raise
         except Exception:
             return None
 

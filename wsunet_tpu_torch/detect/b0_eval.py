@@ -12,7 +12,7 @@
   rank-sharded under a process group (``parallel``), each rank scoring
   its own rows.
 - ``_score_frame`` / ``run``: the ``detector-eval`` sweep over a catalog,
-  giving the rows of ``detection/b0.csv`` (pandas at this edge only).
+  giving the rows (a ``utils.table.Table``) of ``detection/b0.csv``.
 """
 
 import pathlib
@@ -28,6 +28,7 @@ from ..models import b0_state_dict_from_flax, get_b0
 from ..train.checkpoint import load_config, load_params
 from ..utils.errors import UserError
 from ..utils.registry import get_model_name
+from ..utils.table import Table, concat
 
 # ImageNet green-channel moments (the reference takes [1:2] of timm's
 # IMAGENET_DEFAULT_MEAN / STD)
@@ -116,11 +117,11 @@ def score_sweep(root, names, detect: typing.Callable, batch_size: int,
     return out.reshape(len(names)).astype(np.float32)
 
 
-def _score_frame(root, df, detect, batch_size: int, threads: int,
-                 device=None):
+def _score_frame(root, df: Table, detect, batch_size: int, threads: int,
+                 device=None) -> Table:
     """The rows of ``df`` with ``output`` (P(stego), NaN for a failed
     decode) and ``prediction`` (output > 0.5)."""
-    out = df.reset_index(drop=True).copy()
+    out = df.copy()
     out["output"] = score_sweep(root, list(df["name"]), detect, batch_size,
                                 threads, device=device)
     out["prediction"] = out["output"] > 0.5
@@ -132,12 +133,10 @@ def run(data_path: pathlib.Path, model_dir: pathlib.Path,
         model_name: str = None, no_stem_stride: bool = False,
         lsbr_reference: bool = False, batch_size: int = 8,
         threads: int = 8, split: str = None, take_num_images: int = None,
-        device=None):
+        device=None) -> Table:
     """Covers and stego sweeps scored by one trained B0, the rows of
     ``detection/b0.csv``; without ``model_name`` the registry picks the
     run under ``model_dir / stego_method`` with the given switches."""
-    import pandas as pd
-
     from ..data.catalog import precovers, stego_spatial
 
     model_dir = pathlib.Path(model_dir)
@@ -155,4 +154,4 @@ def run(data_path: pathlib.Path, model_dir: pathlib.Path,
         if len(df_s):
             frames.append(_score_frame(data_path, df_s, detect, batch_size,
                                        threads, device=device))
-    return pd.concat(frames).reset_index(drop=True)
+    return concat(frames)

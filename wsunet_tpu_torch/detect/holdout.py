@@ -82,7 +82,8 @@ def holdout_frames(
                     input_dir=data_path, stego_method=sm, alpha=alpha,
                     model_name=model_name, model_path=model_path,
                     model_label=label, weighted=0, batch_size=batch_size,
-                    split=split, ols_fit_split=ols_fit_split, device=device)
+                    split=split, ols_fit_split=ols_fit_split,
+                    device=device).to_pandas()
                 res["fold"] = fold_tag
                 frames.append(res)
 
@@ -115,7 +116,8 @@ def holdout_frames(
                 eval_methods=stego_methods,
                 model_name=spec["model_name"],
                 lsbr_reference=spec.get("lsbr_reference", False),
-                batch_size=batch_size, split=fold.eval_split, device=device)
+                batch_size=batch_size, split=fold.eval_split,
+                device=device).to_pandas()
             res = res[(res["stego_method"].isna()) |
                       (res["alpha"].isin(alphas))].copy()
             res["model_name"] = label
@@ -145,7 +147,7 @@ def holdout_roc(
     from .roc import produce_roc
 
     scores = holdout_frames(data_path, folds, **kw)
-    df_roc = produce_roc(scores)
+    df_roc = produce_roc(scores).to_pandas()
     df_auc = df_roc[["stego_method", "model_name", "auc", "p_e", "wauc",
                      "pmd_5fp", "tau0", "fpr_tau0", "tpr_tau0", "fpr_50",
                      "tpr_50"]].drop_duplicates()
@@ -172,8 +174,9 @@ def holdout_roc(
         for a in sorted(kw.get("alphas", (0.1, 0.05, 0.01))):
             sub = scores[(scores["alpha"] == 0.0) |
                          (scores["alpha"] == a)].copy()
-            t = produce_roc(sub)[["stego_method", "model_name", "auc",
-                                  "p_e"]].drop_duplicates()
+            t = produce_roc(sub).to_pandas()[
+                ["stego_method", "model_name", "auc", "p_e"]
+            ].drop_duplicates()
             t.insert(0, "alpha", a)
             by_alpha.append(t)
         pd.concat(by_alpha, ignore_index=True).to_csv(

@@ -6,26 +6,32 @@ the AUC from fpr-bin-normalised tpr sums (with the tie-aware rank AUC when
 the FPR never moves), P_E = min (1 - tpr + fpr) / 2 and its tau0, the
 operating point at tau = 0.5, and the wAUC and P_MD@5%FP meters.  P_E
 comes from this sweep, not from ``metrics.PEMeter``.  ``produce_roc`` wraps
-it into the JAX package's DataFrame, one group per (stego method, model).
+it into one table (``utils.table``) with the JAX package's DataFrame's
+columns, one group per (stego method, model); ``roc_curves`` is the
+``roc`` command's pivot of it.
 """
 
 import numpy as np
 
+from ..utils.table import Table, as_table, concat
 from .metrics import PMD5FPMeter, roc_auc_score, wAUCMeter
 
 TAUS = np.linspace(0, 1, 501, endpoint=True)[::-1]
 
 
 def iter_detector_groups(df_ws):
-    """(stego_method, model_name, group frame) per detector: the model's
-    rows for the method plus all its cover rows."""
-    for (stego_method, model_name), _ in df_ws.groupby(
+    """(stego_method, model_name, group table) per detector, in the sorted
+    order of the (stego_method, model_name) keys: the model's rows for the
+    method plus all its cover rows.  ``df_ws`` is a table or a
+    DataFrame."""
+    df_ws = as_table(df_ws)
+    for (stego_method, model_name), _ in df_ws.groups(
             ["stego_method", "model_name"]):
         if stego_method == "Cover":
             continue
         df_i = df_ws[df_ws["model_name"] == model_name]
         yield (stego_method, model_name,
-               df_i[df_i["stego_method"].isin([stego_method, "Cover"])])
+               df_i[np.isin(df_i["stego_method"], [stego_method, "Cover"])])
 
 
 def _roc_curve_manual(y_hat: np.ndarray, y: np.ndarray):
@@ -46,10 +52,10 @@ def scores_and_labels(df_i, model_name: str):
     """Scores and soft labels of one group: B0 detectors ('B0' in the
     name) score with their softmax column and label with alpha; WS
     detectors with clipped beta_hat and alpha / 2."""
+    alpha = np.asarray(df_i["alpha"], np.float64)
     if "B0" in model_name:
-        return df_i["score"].to_numpy(), df_i["alpha"].to_numpy()
-    return (np.clip(df_i["beta_hat"].to_numpy(), 0, None),
-            df_i["alpha"].to_numpy() / 2)
+        return np.asarray(df_i["score"]), alpha
+    return np.clip(np.asarray(df_i["beta_hat"]), 0, None), alpha / 2
 
 
 def roc_stats(y_hat: np.ndarray, y: np.ndarray) -> dict:
@@ -90,15 +96,29 @@ def roc_stats(y_hat: np.ndarray, y: np.ndarray) -> dict:
             "wauc": wauc_m.avg, "pmd_5fp": pmd_m.avg}
 
 
-def produce_roc(df_ws):
-    """Per-detector ROC tables of a sweep's rows, one DataFrame."""
-    import pandas as pd
-
+def produce_roc(df_ws) -> Table:
+    """Per-detector ROC tables of a sweep's rows (a table or a DataFrame),
+    one table: 501 rows a detector, its curve and its scalars."""
     out = []
     for stego_method, model_name, df_i in iter_detector_groups(df_ws):
         stats = roc_stats(*scores_and_labels(df_i, model_name))
         label = model_name if "B0" in model_name else f"WS-{model_name}"
-        out.append(pd.DataFrame({"stego_method": stego_method,
-                                 "model_name": model_name, **stats,
-                                 "label": label}))
-    return pd.concat(out)
+        out.append(Table({"stego_method": stego_method,
+                          "model_name": model_name, **stats,
+                          "label": label}, n=len(TAUS)))
+    return concat(out)
+
+
+def roc_curves(df_roc: Table) -> Table:
+    """The curves of ``produce_roc``'s table side by side, one row a
+    threshold in ascending order: ``tpr_<method>_<model>`` for each
+    detector in sorted order, then ``fpr_...`` (``DataFrame.pivot(index=
+    "tau", columns=["stego_method", "model_name"], values=["tpr",
+    "fpr"])`` with its columns joined by "_")."""
+    groups = list(df_roc.groups(["stego_method", "model_name"]))
+    out = Table(n=len(TAUS))
+    for value in ("tpr", "fpr"):
+        for (stego_method, model_name), g in groups:
+            g = g.sort("tau")
+            out[f"{value}_{stego_method}_{model_name}".strip()] = g[value]
+    return out

@@ -1,20 +1,31 @@
-"""Image readers (port of ``wsunet_tpu/io/imread.py``).
+"""Image readers (port of ``wsunet_tpu/io/imread.py``), on the port's
+own PNG decoder (``io.png``): no PIL or OpenCV.
 
-``imread4_*`` stacks [R, G, B, Y] where Y is OpenCV's BGR->GRAY
-luminance; ``imread_gray_u8`` decodes the Y plane alone (for grayscale
-PNGs all four planes are equal).  PIL and cv2 are imported inside the
-functions that read a file, so importing this module needs neither: the
-card's machine has no PIL, and decodes with ``io.native`` where it builds.
+Each returns what the JAX package's reader returns for the same file:
+``imread_u8`` PIL's array (palette indices for a palette image) with a
+channel axis; ``imread4_*`` stacks [R, G, B, Y] where R, G, B are the
+planes OpenCV reads (gray repeated, the palette looked up, alpha
+dropped) and Y is OpenCV's BGR->GRAY luminance; ``imread_gray_u8`` is
+PIL's array for a one-sample image, else the same BT.601 fixed-point
+luminance of its first three planes (for grayscale PNGs all four planes
+are equal).
 """
 
 import numpy as np
 
+from .png import read, read_png
+
+
+def _luma(r, g, b) -> np.ndarray:
+    """OpenCV's BT.601 luminance: shift-15 coefficients, round half up."""
+    r, g, b = (v.astype("int64") for v in (r, g, b))
+    y = (9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15
+    return y.clip(0, 255).astype("uint8")
+
 
 def imread_u8(fname) -> np.ndarray:
     """Read image to HxWxC uint8 (C=1 for grayscale)."""
-    from PIL import Image
-
-    x = np.array(Image.open(fname))
+    x = read_png(fname)
     if x.ndim == 2:
         x = x[..., None]
     return x
@@ -26,13 +37,9 @@ def imread_f32(fname) -> np.ndarray:
 
 def imread4_u8(fname) -> np.ndarray:
     """Read image to HxWx4 uint8 channels [R, G, B, Y]."""
-    import cv2
-
-    x_bgr = cv2.imread(str(fname))
-    if x_bgr is None:
-        raise FileNotFoundError(fname)
-    x_y = cv2.cvtColor(x_bgr, cv2.COLOR_BGR2GRAY)[..., None]
-    return np.concatenate([x_bgr[..., ::-1], x_y], axis=-1)
+    rgb = read(fname).rgb()
+    y = _luma(rgb[..., 0], rgb[..., 1], rgb[..., 2])[..., None]
+    return np.concatenate([rgb, y], axis=-1)
 
 
 def imread4_f32(fname) -> np.ndarray:
@@ -42,11 +49,7 @@ def imread4_f32(fname) -> np.ndarray:
 def imread_gray_u8(fname) -> np.ndarray:
     """Luminance plane as HxW uint8; colour sources use OpenCV's BT.601
     fixed-point rounding (shift-15 coefficients, round half up)."""
-    from PIL import Image
-
-    x = np.array(Image.open(fname))
+    x = read_png(fname)
     if x.ndim == 2:
         return x
-    r, g, b = (x[..., i].astype("int64") for i in range(3))
-    y = (9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15
-    return y.clip(0, 255).astype("uint8")
+    return _luma(x[..., 0], x[..., 1], x[..., 2])

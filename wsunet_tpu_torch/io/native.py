@@ -8,8 +8,10 @@ covers the source and the flags; never into ``native/``), and loads it
 with ctypes; a library that is there but does not load (built on another
 machine) is built again.  The batch call releases the GIL and decodes
 with its own thread pool.  Where it does not build (no g++, libpng or
-libdeflate), ``available()`` is false, ``build_error()`` says why, and the data
-pipeline decodes with PIL instead: the decoder is host I/O, not a kernel.
+libdeflate, as on the card's machine), ``available()`` is false and
+``build_error()`` says why.  The data pipeline decodes with the port's
+own reader (``io.png``) and calls this decoder only under
+``data.pipeline.force_native(True)``, as the bench does to compare them.
 """
 
 import ctypes
@@ -128,7 +130,7 @@ def probe(path) -> tuple:
 def _decode_batch(paths, threads: int, fn_name: str, channels: int):
     """Decode same-sized PNGs with the batch call ``fn_name`` into a list
     of [H, W] (``channels`` 1) or [H, W, channels] uint8 arrays, or None if
-    the native path cannot serve this batch (the caller uses PIL)."""
+    the native path cannot serve this batch (an image that fails)."""
     lib = _load()
     if lib is None or not paths:
         return None
@@ -137,8 +139,7 @@ def _decode_batch(paths, threads: int, fn_name: str, channels: int):
     except FileNotFoundError:
         return None
     if h <= 0 or w <= 0 or h * w > 1 << 28:
-        # a corrupt header can claim absurd dimensions; PIL, with its own
-        # decompression-bomb guard, takes such a batch
+        # a corrupt header can claim absurd dimensions
         return None
     shape = (len(paths), h, w) + ((channels,) if channels > 1 else ())
     try:
@@ -157,12 +158,12 @@ def _decode_batch(paths, threads: int, fn_name: str, channels: int):
 
 def decode_gray_batch(paths, threads: int = 8):
     """Decode same-sized PNGs into a list of [H, W] uint8 arrays, or None
-    if the native path cannot serve this batch (the caller uses PIL)."""
+    if the native path cannot serve this batch."""
     return _decode_batch(paths, threads, "ws_png_decode_gray_batch", 1)
 
 
 def decode_rgby_batch(paths, threads: int = 8):
     """Decode same-sized PNGs into a list of [H, W, 4] uint8 arrays, planes
     R, G, B, Y (``io.imread4_u8``'s layout), or None if the native path
-    cannot serve this batch (the caller uses PIL)."""
+    cannot serve this batch."""
     return _decode_batch(paths, threads, "ws_png_decode_rgby_batch", 4)

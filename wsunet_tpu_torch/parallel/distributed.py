@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ..utils.errors import UserError
+from ..utils.table import Table
 
 
 def distributed_init(init_method: str = None, world_size: int = None,
@@ -71,12 +72,12 @@ def distributed_init(init_method: str = None, world_size: int = None,
 
 def process_local_rows(names_or_df, rank: int = None, world: int = None):
     """This rank's strided rows ``rank::world`` of a list of names or a
-    catalog frame (each rank decodes only its own rows)."""
+    catalog table (each rank decodes only its own rows)."""
     if rank is None or world is None:
         active = dist.is_initialized()
         rank = (dist.get_rank() if active else 0) if rank is None else rank
         world = (dist.get_world_size() if active else 1) \
             if world is None else world
-    if hasattr(names_or_df, "iloc"):
-        return names_or_df.iloc[rank::world]
+    if isinstance(names_or_df, Table):
+        return names_or_df[rank::world]
     return list(names_or_df)[rank::world]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, to_device
+from ..utils.table import Table, concat
 from .mesh import Mesh, get_mesh
 
 # test hook: 1 makes this rank run the whole catalog alone (the
@@ -48,7 +49,7 @@ def eval_device_count() -> int:
 
 def host_shard(names):
     """(local_rows, n_true): this rank's strided rows of ``names`` (a list
-    of names or a catalog frame), padded by repeating the first row so
+    of names or a catalog table), padded by repeating the first row so
     that every rank takes the same number of steps.  ``n_true`` is the
     unpadded count; rows computed for the padding are dropped before
     ``allgather_rows``.  At a world of one: (names, len(names))."""
@@ -60,10 +61,8 @@ def host_shard(names):
     n_true = len(local)
     target = -(-len(names) // mesh.world)
     if n_true < target and len(names):
-        if hasattr(names, "iloc"):
-            import pandas as pd
-            local = pd.concat([local] + [names.iloc[[0]]] *
-                              (target - n_true))
+        if isinstance(names, Table):
+            local = concat([local] + [names[[0]]] * (target - n_true))
         else:
             local = local + [names[0]] * (target - n_true)
     return local, n_true

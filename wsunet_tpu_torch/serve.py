@@ -27,6 +27,7 @@ import torch
 from ._device import resolve_device
 from .io import imread_gray_u8
 from .ops.ws import ws_estimate_unet
+from .utils.errors import UserError
 
 
 class _Pending:
@@ -139,8 +140,10 @@ def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
     """Streaming serve loop over image paths: background-threaded decode
     feeds ``predict_many``-style pipelining.  Yields one dict per path in
     order, ``{"name", "beta_hat", "l1"}`` or ``{"name", "error"}``, and
-    never aborts on a per-image failure.  The default reader decodes with
-    PIL, imported when it is first called."""
+    never aborts on a per-image failure (a file the reader cannot read
+    included).  The default reader is the port's PNG reader
+    (``io.imread_gray_u8`` on ``io.png``), which decodes outside the
+    GIL."""
     import concurrent.futures as futures
 
     if reader is None:
@@ -184,7 +187,7 @@ def stream_paths(server: UNetWSServer, paths: typing.Iterable[str],
                 try:
                     q.append((name, server._submit(fut.result(), n % depth)))
                     n += 1
-                except (OSError, ValueError) as e:
+                except (OSError, ValueError, UserError) as e:
                     q.append((name, e))
             while len(q) >= depth or (done and not dq and q):
                 name, pending = q.popleft()
@@ -201,8 +204,8 @@ def serve_lines(server: UNetWSServer, lines: typing.Iterable[str],
     each answered before the next line is read (a pipelined loop would
     hold answers back behind later lines).  Yields ``{"name", "beta_hat",
     "l1"}`` or, for an image that fails or has the wrong shape, ``{"name",
-    "error"}``, and never stops on one.  The default reader decodes with
-    PIL, imported when it is first called."""
+    "error"}``, and never stops on one.  The default reader is the port's
+    PNG reader (``io.imread_gray_u8``)."""
     if reader is None:
         reader = imread_gray_u8
     for path in (line.strip() for line in lines):

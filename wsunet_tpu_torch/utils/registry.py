@@ -4,7 +4,7 @@
 ``<model_dir>/<stego_method>/<run_name>/config.json`` beside the run's
 ``best.npz`` (where the JAX package looks for ``model/best``).
 ``get_model_name`` reads the configs with json alone; ``scan_models``
-imports pandas inside the function.
+gives them as a table (``utils.table``).
 """
 
 import glob
@@ -14,6 +14,7 @@ import typing
 
 from ..train.checkpoint import PARAMS_FILE
 from .errors import UserError
+from .table import Table, from_rows
 
 
 def _scan_rows(model_dir: pathlib.Path, stego_method: str) -> list:
@@ -46,11 +47,9 @@ def _scan_rows(model_dir: pathlib.Path, stego_method: str) -> list:
     return rows
 
 
-def scan_models(model_dir: pathlib.Path, stego_method: str):
-    """Config rows (a DataFrame) of the runs that have a ``best.npz``."""
-    import pandas as pd
-
-    return pd.DataFrame(_scan_rows(model_dir, stego_method))
+def scan_models(model_dir: pathlib.Path, stego_method: str) -> Table:
+    """Config rows (a table) of the runs that have a ``best.npz``."""
+    return from_rows(_scan_rows(model_dir, stego_method))
 
 
 def get_model_name(model_dir: pathlib.Path, stego_method: str,

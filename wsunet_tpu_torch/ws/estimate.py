@@ -11,8 +11,8 @@
   ``channel`` (an [R, G, B, Y] plane other than Y) or ``pixel_estimator4``
   (the colour OLS predictor) it reads [B, H, W, 4] batches with
   ``io.imread4_u8`` and attacks the ``channel`` plane.
-- ``run``: one (stego method, alpha, model) configuration, the rows of the
-  ``ws-eval`` and ``roc`` sweeps (pandas at this edge only).  ``OLS``
+- ``run``: one (stego method, alpha, model) configuration, the rows (a
+  ``utils.table.Table``) of the ``ws-eval`` and ``roc`` sweeps.  ``OLS``
   fits its taps on the covers (``ops.ols``): the 8-tap gray layout for
   one channel, color4 / color8 for two or three.
 
@@ -135,8 +135,9 @@ def attack_sweep(
     sca: bool = False,
     device=None,
 ) -> np.ndarray:
-    """beta_hat (float64) for every catalog row of ``df`` (anything with a
-    ``name`` column), in order; NaN where the image failed to decode.
+    """beta_hat (float64) for every catalog row of ``df`` (a table, or
+    anything with a ``name`` column), in order; NaN where the image
+    failed to decode.
     ``channel`` picks an [R, G, B, Y] plane (None or 3: the luminance);
     ``pixel_estimator4`` (f32 [B, 4, H, W] -> [B, H-2, W-2]) predicts the
     ``channel`` plane from all four.  Under a process group each rank
@@ -245,7 +246,7 @@ def run(
         correct_bias=correct_bias, batch_size=batch_size, threads=threads,
         channel=channel, pixel_estimator4=estimator4, sca=sca, device=dev)
 
-    res = df.reset_index(drop=True).copy()
+    res = df.copy()
     res["beta_hat"] = betas
     res["model_name"] = model_label or weighted_label or out_model_name
     res["channels"] = "".join(map(str, channels))
@@ -253,4 +254,4 @@ def run(
     # as the JAX package's do
     res["weighted"] = weighted
     res["correct_bias"] = correct_bias
-    return res[~res.beta_hat.isna()]
+    return res[~np.isnan(betas)]

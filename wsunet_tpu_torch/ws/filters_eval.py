@@ -18,7 +18,8 @@ over the pixels whose HILL cost lies at or below the image's 0.1 quantile
 
 ``mae_wmae`` is the device step (numpy and torch only, so it runs on the
 card); ``filters_sweep`` runs it over image names through the batched
-pipeline and the plane's reader; ``run`` is the CSV edge (pandas).
+pipeline and the plane's reader; ``run`` gives the CSV's rows as a table
+(``utils.table``).
 """
 
 import pathlib
@@ -31,6 +32,7 @@ from .._device import resolve_device, to_device
 from ..io.imread import imread4_u8, imread_gray_u8
 from ..ops.filters import NAMED_FILTERS, filter_residuals, taps_to_kernel2d
 from ..ops.hill import hill_cost
+from ..utils.table import Table, concat
 
 
 def bayer_slices(inbayer: str):
@@ -107,12 +109,10 @@ def run(input_dir: pathlib.Path,
         channels: typing.Sequence[typing.Tuple[int, ...]] = ((3,), (3,)),
         inbayer: str = None, batch_size: int = 8, threads: int = 8,
         split: str = None, device=None, **order_kw):
-    """Every (filter, channel) pair over the catalog's covers: one frame
-    of rows ``fname``, ``mae_<c>_<filter>``, ``wmae_<c>_<filter>`` and the
-    catalog row per pair, concatenated in the JAX package's order; an
-    image that fails to decode has no row."""
-    import pandas as pd
-
+    """Every (filter, channel) pair over the catalog's covers: one table
+    of rows ``fname``, ``mae_<c>_<filter>``, ``wmae_<c>_<filter>`` (f32)
+    and the catalog row per pair, concatenated in the JAX package's order;
+    an image that fails to decode has no row."""
     from ..data.catalog import precovers
 
     resolve_device(device)
@@ -124,15 +124,16 @@ def run(input_dir: pathlib.Path,
                              channel=channel[0], inbayer=inbayer,
                              batch_size=batch_size, threads=threads,
                              device=device)
-        rows = []
-        for i, (_, row) in enumerate(df.iterrows()):
-            if np.isnan(vals[i, 0]):
-                continue
-            rows.append({
-                "fname": str(pathlib.Path(input_dir) / row["name"]),
-                f"mae_{cname}_{filter_name}": np.float32(vals[i, 0]),
-                f"wmae_{cname}_{filter_name}": np.float32(vals[i, 1]),
-                **row.to_dict(),
-            })
-        frames.append(pd.DataFrame(rows))
-    return pd.concat(frames).reset_index(drop=True)
+        ok = ~np.isnan(vals[:, 0]) if len(df) else np.zeros(0, bool)
+        rows = df[ok]
+        out = Table({"fname": [str(pathlib.Path(input_dir) / name)
+                               for name in rows["name"]]}, n=len(rows))
+        if len(rows):
+            out[f"mae_{cname}_{filter_name}"] = \
+                vals[ok, 0].astype(np.float32)
+            out[f"wmae_{cname}_{filter_name}"] = \
+                vals[ok, 1].astype(np.float32)
+            for name in rows.columns:
+                out[name] = rows[name]
+        frames.append(out)
+    return concat(frames)

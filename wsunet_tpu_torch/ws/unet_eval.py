@@ -13,7 +13,7 @@
   (``parallel``), each rank running the model, on B1 with
   ``fast_conv=True``, over its own rows.
 - ``_predict_frame`` / ``run``: the ``unet-eval`` sweep over a catalog,
-  giving the rows of ``ws_<method>.csv`` (pandas at this edge only).
+  giving the rows (a ``utils.table.Table``) of ``ws_<method>.csv``.
 """
 
 import pathlib
@@ -30,6 +30,7 @@ from ..ops.ws import ws_estimate_unet
 from ..train.checkpoint import load_config, load_params
 from ..utils.errors import UserError
 from ..utils.registry import get_model_name
+from ..utils.table import Table, concat
 
 
 @torch.no_grad()
@@ -105,29 +106,25 @@ def predict_sweep(root, names, model, batch_size: int, threads: int = 8,
     return out[:, 0].astype(np.float32), out[:, 1].astype(np.float32)
 
 
-def _predict_frame(root, df, model, batch_size: int, threads: int,
-                   device=None):
+def _predict_frame(root, df: Table, model, batch_size: int, threads: int,
+                   device=None) -> Table:
     """Per-image (beta_hat, l1) over catalog rows: the rows of ``df`` with
     two more columns; a failed decode gives NaN."""
-    import pandas as pd
-
     beta, l1 = predict_sweep(root, list(df["name"]), model, batch_size,
                              threads, device=device)
-    out = df.reset_index(drop=True).copy()
-    out["beta_hat"] = pd.Series(beta, index=out.index)
-    out["l1"] = pd.Series(l1, index=out.index)
+    out = df.copy()
+    out["beta_hat"] = beta
+    out["l1"] = l1
     return out
 
 
 def run(data_path: pathlib.Path, model_dir: pathlib.Path, stego_method: str,
         eval_methods=("LSBR", "HILLR"), model_name: str = None,
         batch_size: int = 8, threads: int = 8, split: str = None,
-        take_num_images: int = None, fast_conv=False, device=None):
+        take_num_images: int = None, fast_conv=False, device=None) -> Table:
     """Cover + stego sweeps of one trained model: the rows of
     ``estimation/ws_<method>.csv``; ``fast_conv=True`` runs the U-Net's
     3x3 convs through kernel B1."""
-    import pandas as pd
-
     from ..data.catalog import precovers, stego_spatial
 
     model_dir = pathlib.Path(model_dir)
@@ -143,4 +140,4 @@ def run(data_path: pathlib.Path, model_dir: pathlib.Path, stego_method: str,
         if len(df_s):
             frames.append(_predict_frame(data_path, df_s, model, batch_size,
                                          threads, device=device))
-    return pd.concat(frames).reset_index(drop=True)
+    return concat(frames)
