@@ -205,6 +205,22 @@ kernel against its plain PyTorch version:
    with the decode in the clock and the card's busy share, and the
    bench's ``decode_only`` (ms an image at 1 and 8 threads) and
    ``e2e_decode``, beside the card's name and power limit.
+17. the holdout tables and the analyses from PNG files, each in a
+   process without pandas, PIL, cv2, matplotlib and seaborn, every B1 and
+   B2 launch held to its plain version and counted (``run_checked``).
+   (a) ``detect.holdout_roc`` (this script again, ``--holdout-checked``)
+   on phase 16 (a)'s p128 PNGs, two folds of ``data_ablation/p128``'s
+   splits, KB and KB-w on B2, the LSBR U-Net and the strided B0: its
+   per-image scores within phase 9's and 10's bounds of JAX's golden
+   ones, its AUC and CI files the port's tables of those scores byte for
+   byte, and within one near-tie of the tables of JAX's golden scores.
+   (b) a user's analysis session on phase 16 (b)'s 64 512x512 covers,
+   copied to a fresh folder: ``init-dataset`` (its splits against the
+   stem hash recomputed here), ``simulate --alphas 1.0``,
+   ``correlation``, ``error-boxes``, ``contour`` and ``saliency`` with
+   ``--fast-conv`` (B1, f32): the CSVs read back, each figure not drawn
+   named on stderr, the dots image decoded against ``sobel_locations``;
+   each command's process time.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -2792,14 +2808,23 @@ WIDE_ALPHAS = ("0.1", "0.4")
 
 def cli_checked(out: pathlib.Path, args: list) -> int:
     """``chip_smoke.py --cli-checked OUT ARGS...``: ``python -m
-    wsunet_tpu_torch ARGS`` (the CLI's ``main``) in this process, each B1
-    and B2 launch held against its plain version (phases 5's and 2's
-    bounds) and counted from 0; the counts, the errors and the wall time
-    go to ``OUT`` (JSON).  Every host package must fail to import here,
-    before and after the run."""
+    wsunet_tpu_torch ARGS`` (the CLI's ``main``) in this process, under
+    ``run_checked``."""
+    from wsunet_tpu_torch.cli import main as cli_main
+
+    def run():
+        rc = cli_main([str(a) for a in args])
+        check(rc in (0, None), f"CLI {args[0]}: exit {rc}")
+    return run_checked(out, f"CLI {args[0]}", run)
+
+
+def run_checked(out: pathlib.Path, label: str, fn) -> int:
+    """``fn()`` in this process, each B1 and B2 launch held against its
+    plain version (phases 5's and 2's bounds) and counted from 0; the
+    counts, the errors and the wall time go to ``out`` (JSON).  Every
+    host package must fail to import here, before and after the run."""
     import importlib
 
-    from wsunet_tpu_torch.cli import main as cli_main
     from wsunet_tpu_torch.ops import fused_reflect_conv, fused_ws
 
     def host_loaded() -> list:
@@ -2815,15 +2840,14 @@ def cli_checked(out: pathlib.Path, args: list) -> int:
 
     check(not host_loaded(), f"host packages import here: {host_loaded()}")
     b1_calls, b2_calls = [], []
-    fused_reflect_conv._launch = checking_b1(b1_calls, f"CLI {args[0]}")
-    fused_ws._launch = checking_b2(b2_calls, f"CLI {args[0]}")
+    fused_reflect_conv._launch = checking_b1(b1_calls, label)
+    fused_ws._launch = checking_b2(b2_calls, label)
     fused_reflect_conv.reset_launches()
     fused_ws.reset_launches()
     t0 = time.perf_counter()
-    rc = cli_main([str(a) for a in args])
+    fn()
     wall = time.perf_counter() - t0
-    check(rc in (0, None), f"CLI {args[0]}: exit {rc}")
-    check(not host_loaded(), f"CLI {args[0]} loaded {host_loaded()}")
+    check(not host_loaded(), f"{label} loaded {host_loaded()}")
     out.write_text(json.dumps({
         "wall_s": wall, "b1": fused_reflect_conv.launches,
         "b1_checked": len(b1_calls),
@@ -2834,9 +2858,11 @@ def cli_checked(out: pathlib.Path, args: list) -> int:
     return 0
 
 
-def run_cli(job: pathlib.Path, label: str, args: list) -> dict:
-    """One CLI command as a subprocess of ``cli_checked``, where the host
-    packages cannot be imported; its record, stdout and stderr."""
+def run_cli(job: pathlib.Path, label: str, args: list,
+            mode: str = "--cli-checked") -> dict:
+    """One CLI command as a subprocess of ``cli_checked`` (or another
+    ``mode`` of this script that runs under ``run_checked``), where the
+    host packages cannot be imported; its record, stdout and stderr."""
     stubs = job / "stubs"
     for name in HOST_PACKAGES:
         (stubs / name).mkdir(parents=True, exist_ok=True)
@@ -2847,17 +2873,17 @@ def run_cli(job: pathlib.Path, label: str, args: list) -> dict:
            "PYTHONPATH": os.pathsep.join([str(stubs), str(REPO)])}
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, str(REPO / "chip_smoke.py"), "--cli-checked",
+        [sys.executable, str(REPO / "chip_smoke.py"), mode,
          str(out), *map(str, args)], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=CLI_TIMEOUT)
-    check(proc.returncode == 0, f"CLI {label}: exit {proc.returncode}: "
+    check(proc.returncode == 0, f"{label}: exit {proc.returncode}: "
                                 f"{proc.stderr[-3000:]}")
     rec = json.loads(out.read_text())
     check(rec["b1"] == rec["b1_checked"] and rec["b2"] == rec["b2_checked"],
-          f"CLI {label}: a launch escaped the check: {rec}")
+          f"{label}: a launch escaped the check: {rec}")
     rec.update(stdout=proc.stdout, stderr=proc.stderr,
                process_s=time.perf_counter() - t0)
-    print(f"CLI {label} (a process without {', '.join(HOST_PACKAGES)}): "
+    print(f"{label} (a process without {', '.join(HOST_PACKAGES)}): "
           f"{rec['process_s']:.1f} s ({rec['wall_s']:.1f} s in main); "
           f"B1 {rec['b1']} launches {json.dumps(rec['b1_by_variant'])}, "
           f"max |err| {rec['b1_max_err']:.3e}; B2 {rec['b2']}, max |err| "
@@ -3198,6 +3224,381 @@ def png_path(smi_line: str, p9: dict) -> dict:
             b2_timed, "b1_checked": b1_cli, "b2_checked": b2_cli,
             "b1_max_err": max(r["b1_max_err"] for r in runs.values()),
             "b2_max_err": max(r["b2_max_err"] for r in runs.values())}
+
+
+# ---- phase 17: the holdout tables and the analyses from PNG files
+ANALYSES_JOB = REPO / "build" / "smoke_holdout_analyses"
+# (a): the golden sets' alphas, two folds of data_ablation/p128's splits
+HOLDOUT_ALPHAS = ("0.1", "0.01")
+HOLDOUT_B0 = "B0_mix0.1-0.05-0.01"
+# per-image scores against JAX's golden ones: B2's bounds (KB, KB-w),
+# phase 9's U-Net bound (beta_hat, f32 on cuDNN), B0's (P(stego))
+HOLDOUT_SCORE_TOL = {"KB": (RTOL, ATOL), "KB-w": (RTOL, ATOL),
+                     "UNet": (0.0, 1e-5), HOLDOUT_B0: (0.0, B0_ATOL)}
+# (b): the correlation table's columns, in the JAX CLI's order
+CORRELATION_COLUMNS = ["Unnamed: 0", "1", "AVG9", "AVG", "KB",
+                       "UNet_dropout_l1", "UNet_LSBR_l1ws",
+                       "UNet_HILLR_l1ws"]
+
+
+def holdout_folds() -> list:
+    """The two folds of phase 17 (a), as ``tests/test_torch_ci_holdout.py``
+    makes them: fold 0 evaluates the 16 covers of ``split_va.csv``, fold 1
+    the other 48 of ``split_tr.csv``; each fold's U-Net is the committed
+    LSBR ``unet_2`` run, its B0 the strided LSBR B0 run."""
+    from wsunet_tpu_torch.detect import Fold
+    from wsunet_tpu_torch.utils.registry import get_model_name
+
+    unets = REPO / "weights" / "unet"
+    run = get_model_name(unets, "LSBR")
+    return [Fold(eval_split=f"eval_fold{i}.csv",
+                 unets={"UNet": (unets / "LSBR", run)},
+                 b0s={HOLDOUT_B0: {"model_dir": REPO / "weights" / "b0",
+                                   "stego_method": "LSBR",
+                                   "model_name": B0_RUNS["strided"]}})
+            for i in (0, 1)]
+
+
+def holdout_checked(out: pathlib.Path, args: list) -> int:
+    """``chip_smoke.py --holdout-checked OUT DATA RESULTS``:
+    ``detect.holdout_roc`` over DATA's two folds (KB and KB-w on B2, the
+    U-Net, B0) at the golden alphas, its files under RESULTS, under
+    ``run_checked``."""
+    from wsunet_tpu_torch.detect import holdout_roc
+
+    data, results = (pathlib.Path(a) for a in args)
+    return run_checked(out, "holdout_roc", lambda: holdout_roc(
+        data, holdout_folds(), results_dir=results,
+        filter_models=("KB", "KB-w"), stego_methods=("LSBR",),
+        alphas=tuple(float(a) for a in HOLDOUT_ALPHAS)))
+
+
+def golden_scores(names: list):
+    """The per-image scores of JAX's golden files as the rows
+    ``holdout_frames`` gives (cover rows "Cover" at alpha 0): beta_hat of
+    KB, KB-w and the U-Net, clipped at 0 as the sweep clips it (the golden
+    U-Net's is not), and P(stego) of the strided B0."""
+    from wsunet_tpu_torch.utils.table import Table, concat
+
+    gold, gold_b0 = np.load(GOLDEN), np.load(GOLDEN_B0)
+    sets = [str(x) for x in gold["sets"]]
+    parts = []
+    for det in HOLDOUT_SCORE_TOL:
+        vals = gold_b0[f"prob/{det}"] if det == HOLDOUT_B0 else \
+            np.clip(gold[f"beta/{det}"], 0, None)
+        for s, label in enumerate(sets):
+            rows = names if s == 0 else [
+                f"stego_LSBr_alpha_{label}_independent_images/"
+                f"{pathlib.Path(n).name}" for n in names]
+            parts.append(Table({
+                "name": rows, "model_name": det,
+                "stego_method": "Cover" if s == 0 else "LSBR",
+                "alpha": 0.0 if s == 0 else float(label),
+                "score" if det == HOLDOUT_B0 else "beta_hat":
+                    np.asarray(vals[s], np.float64)}, n=len(names)))
+    return concat(parts)
+
+
+def holdout_path(job: pathlib.Path, smi_line: str) -> dict:
+    """Phase 17 (a): ``holdout_roc`` on the p128 PNG covers and golden
+    stego of phase 16 (a), in a process without the host packages; its
+    per-image scores against JAX's golden ones, its AUC and CI files the
+    port's tables of those scores read back, and within one near-tie of
+    the tables of JAX's golden scores."""
+    from wsunet_tpu_torch.detect import bootstrap_roc_cis, produce_roc
+    from wsunet_tpu_torch.detect import ci as ci_mod
+    from wsunet_tpu_torch.detect.roc import AUC_COLUMNS, TAUS
+    from wsunet_tpu_torch.utils.table import Table, concat, read_csv
+
+    data = job / "p128"
+    names = [str(n) for n in np.load(GOLDEN)["names"]]
+    if (PNG_JOB / "clean").is_dir():
+        shutil.copytree(PNG_JOB / "clean", data)
+    else:   # phase 17 run alone
+        png_catalog(data, np.load(GOLDEN))
+    split = REPO / "data_ablation" / "p128"
+    va = set(read_csv(split / "split_va.csv")["name"])
+    tr = set(read_csv(split / "split_tr.csv")["name"])
+    check(va < tr and tr == set(names), "p128's splits do not hold the "
+          "golden covers")
+    rows = concat([read_csv(f) for f in sorted(data.glob("*/files.csv"))])
+    cover_of = np.array(["images/" + pathlib.Path(n).name
+                         for n in rows["name"]], object)
+    for i, members in enumerate((va, tr - va)):
+        rows[np.isin(cover_of, sorted(members))].to_csv(
+            data / f"eval_fold{i}.csv")
+    results = job / "holdout"
+    rec = run_cli(job, "holdout_roc p128", [data, results],
+                  mode="--holdout-checked")
+    check(rec["b2"] > 0, "holdout_roc: B2 did not launch")
+    det_dir = results / "detection"
+    suffix = f"{min(HOLDOUT_ALPHAS, key=float)}_holdout"
+
+    # the per-image scores against JAX's golden ones
+    written = read_rows(det_dir / "scores_holdout.csv")
+    card = Table({"name": [r["name"] for r in written],
+                  "fold": [r["fold"] for r in written],
+                  "model_name": [r["model_name"] for r in written],
+                  "stego_method": [r["stego_method"] for r in written],
+                  "alpha": [float(r["alpha"]) for r in written],
+                  "beta_hat": [float(r["beta_hat"] or "nan")
+                               for r in written],
+                  "score": [float(r["score"] or "nan") for r in written]})
+    gold = golden_scores(names)
+    key = {(m, n): i for i, (m, n) in enumerate(zip(gold["model_name"],
+                                                    gold["name"]))}
+    check(len(card) == len(gold) and all(
+        (m, n) in key for m, n in zip(card["model_name"], card["name"])),
+        f"holdout scores: {len(card)} rows, {len(gold)} golden")
+    order = np.array([key[m, n] for m, n in zip(card["model_name"],
+                                                card["name"])])
+    for det, (rtol, atol) in HOLDOUT_SCORE_TOL.items():
+        col = "score" if det == HOLDOUT_B0 else "beta_hat"
+        sel = card["model_name"] == det
+        got, want = card[col][sel], gold[col][order[sel]]
+        d = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=rtol, atol=atol),
+              f"holdout {det}: scores {d} from JAX's golden ones")
+        folds = set(card["fold"][sel])
+        check(folds == ({"all"} if det.startswith("KB") else
+                        {"fold0", "fold1"}), f"holdout {det}: folds {folds}")
+        print(f"holdout_roc {det}: {int(sel.sum())} per-image scores within "
+              f"{d:.3e} of JAX's golden ones (rtol {rtol}, atol {atol})")
+
+    # the written AUC and CI files are the port's tables of those scores
+    card = card.drop("fold")
+    files = {"auc": det_dir / f"auc_{suffix}.csv",
+             "ci": det_dir / f"auc_{suffix}_ci.csv"}
+    got = {"auc": produce_roc(card)[AUC_COLUMNS].drop_duplicates(),
+           "ci": bootstrap_roc_cis(card)}
+    for k, f in files.items():
+        check(f.read_text() == got[k].to_csv(),
+              f"holdout: {f.name} is not the table of its scores")
+    for name in (f"roc_{suffix}.csv", "auc_by_alpha_holdout.csv"):
+        check(len(read_csv(det_dir / name)) > 0, f"holdout {name} empty")
+
+    # within one near-tie of the tables of JAX's golden scores, taken in
+    # the written rows' order (the bootstrap resamples rows by position).
+    # A statistic moves only where an image's score falls on the other side
+    # of a grid threshold (or of 0.5) or a cover-stego pair orders the
+    # other way: with no such near-tie a detector's rows are equal, bit for
+    # bit, but for wAUC and P_MD@5%FP (a pair's and a cover's weight);
+    # with d of them the AUC (the CI's ends) within 2 d c / n_covers and
+    # P_E within d c / n_covers, c = 1 (c = the most copies of one image
+    # in a resample)
+    n_c = len(names)
+    n_s = n_c * len(HOLDOUT_ALPHAS)
+    gold = gold[order]
+    want = {"auc": produce_roc(gold)[AUC_COLUMNS].drop_duplicates(),
+            "ci": bootstrap_roc_cis(gold)}
+    rng = np.random.default_rng(ci_mod.SEED)
+    copies = max(ci_mod._counts(rng, ci_mod.N_BOOT, n).max()
+                 for n in (n_s, n_c))
+    ties, worst = {}, {}
+    for det in HOLDOUT_SCORE_TOL:
+        col = "score" if det == HOLDOUT_B0 else "beta_hat"
+        sel = card["model_name"] == det
+        a, b = card[col][sel], gold[col][sel]
+        cover = card["stego_method"][sel] == "Cover"
+        moved = ((a[:, None] > TAUS) != (b[:, None] > TAUS)).any(1) | \
+            ((a > 0.5) != (b > 0.5))
+        swapped = np.sign(a[~cover][:, None] - a[cover]) != \
+            np.sign(b[~cover][:, None] - b[cover])
+        moved[np.flatnonzero(~cover)[swapped.any(1)]] = True
+        moved[np.flatnonzero(cover)[swapped.any(0)]] = True
+        ties[det] = int(moved.sum())
+    for k in ("auc", "ci"):
+        check(list(got[k]["model_name"]) == list(want[k]["model_name"]),
+              f"holdout {k}: detectors {list(got[k]['model_name'])}")
+        c = 1 if k == "auc" else copies
+        for i, det in enumerate(got[k]["model_name"]):
+            d = ties[det]
+            for col in got[k].columns[2:]:
+                g, w = got[k][col][i], want[k][col][i]
+                if col == "wauc":
+                    bound = 2 / (n_c * n_s) * max(d, 1)
+                elif col == "pmd_5fp":
+                    bound = max(d, 1) / n_c
+                elif col.startswith("auc"):
+                    bound = 2 * d * c / n_c
+                elif col.startswith("p_e"):
+                    bound = d * c / n_c
+                else:
+                    bound = 0.0 if not d else np.inf
+                dd = abs(g - w)
+                worst[col] = max(worst.get(col, 0.0), float(dd))
+                check(dd <= bound or (np.isnan(g) and np.isnan(w)),
+                      f"holdout {k} {det} {col}: {g} against JAX's {w} "
+                      f"({d} near-ties, bound {bound})")
+    check(list(got["ci"]["n_cover"]) == [n_c] * 4 and
+          list(got["ci"]["n_stego"]) == [n_s] * 4, "holdout CI class sizes")
+    auc, ci = got["auc"], got["ci"]
+    print(f"holdout_roc tables ({smi_line}): " + "; ".join(
+        f"{m}: AUC {a:.6f} [{lo:.6f}, {hi:.6f}] P_E {p:.6f} "
+        f"[{plo:.6f}, {phi:.6f}]" for m, a, p, lo, hi, plo, phi in zip(
+            auc["model_name"], auc["auc"], auc["p_e"], ci["auc_lo"],
+            ci["auc_hi"], ci["p_e_lo"], ci["p_e_hi"])))
+    print("holdout_roc: the AUC and CI files are the port's tables of its "
+          "own per-image scores, byte for byte, and within their near-ties "
+          f"({json.dumps(ties)}; a resample draws an image up to {copies:g} "
+          "times) of the tables of JAX's golden scores (max |d| " +
+          json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}) +
+          ")")
+    return rec
+
+
+def stem_split(name: str, fractions=(0.6, 0.2, 0.2)) -> str:
+    """The split ``init-dataset`` puts a cover in, recomputed here: the
+    sha256 of its stem mod 2^31, its last six digits as a fraction."""
+    import hashlib
+
+    seed = int(hashlib.sha256(pathlib.Path(name).stem.encode("utf-8"))
+               .hexdigest(), 16) % 2 ** 31
+    u = (seed % 10 ** 6) / 10 ** 6
+    return "tr" if u < fractions[0] else \
+        "va" if u < fractions[0] + fractions[1] else "te"
+
+
+def session_path(job: pathlib.Path, smi_line: str) -> dict:
+    """Phase 17 (b): a user's analysis session at 512x512 on the 64 covers
+    of phase 16 (b), copied to a fresh folder, each command a process
+    without the host packages."""
+    from wsunet_tpu_torch.analyses.saliency import sobel_locations
+    from wsunet_tpu_torch.io.imread import imread_gray_u8
+    from wsunet_tpu_torch.io.png import read_png
+    from wsunet_tpu_torch.utils.table import read_csv
+
+    wide = PNG_JOB / "wide"
+    if len(list((wide / "images").glob("*.png"))) != WIDE_COVERS:
+        # phase 17 run alone: phase 16 (b)'s covers
+        shutil.rmtree(wide, ignore_errors=True)
+        tile_covers(wide, WIDE_COVERS, seed=160)
+    root = job / "session"
+    (root / "images").mkdir(parents=True)
+    covers = sorted((wide / "images").glob("*.png"))
+    for p in covers:
+        shutil.copyfile(p, root / "images" / p.name)
+    image = "images/" + covers[0].name
+    res = job / "session_res"
+    model = ["--model-dir", "weights/unet"]
+    runs = {}
+    for label, args in (
+            ("init-dataset", ["init-dataset", "--data", root]),
+            ("simulate", ["simulate", "--data", root, "--method", "LSBr",
+                          "--alphas", "1.0"]),
+            ("correlation", ["correlation", "--data", root, "--results",
+                             res, "--fast-conv", *model]),
+            ("error-boxes", ["error-boxes", "--data", root, "--results",
+                             res, "--fast-conv", *model]),
+            ("contour", ["contour", "--data", root, "--results", res,
+                         "--fast-conv", "--image", image, *model]),
+            ("saliency", ["saliency", "--data", root, "--results", res,
+                          "--fast-conv", "--image", image])):
+        runs[label] = run_cli(job, f"{label} 512", args)
+
+    # init-dataset: the catalog and the stem-hash partition
+    files = read_csv(root / "images" / "files.csv")
+    names = ["images/" + p.name for p in covers]
+    h, w = imread_gray_u8(covers[0]).shape
+    check(list(files["name"]) == names and
+          set(files["height"]) == {h} and set(files["width"]) == {w},
+          "init-dataset: files.csv")
+    parts = {w: list(read_csv(root / f"split_{w}.csv")["name"])
+             for w in ("tr", "va", "te")}
+    for w, got in parts.items():
+        check(got == [n for n in names if stem_split(n) == w],
+              f"init-dataset: split_{w}.csv is not the stem-hash split")
+    print(f"init-dataset: {len(names)} covers split "
+          f"{json.dumps({w: len(v) for w, v in parts.items()})}, as the "
+          f"stem hash recomputed here puts them")
+
+    # correlation.csv and ae_boxes_3.csv read back
+    corr = read_csv(res / "estimation" / "correlation.csv")
+    check(corr.columns == CORRELATION_COLUMNS and
+          list(corr["Unnamed: 0"]) == ["correlation", "p-value"],
+          f"correlation.csv: {corr.columns}")
+    vals = np.array([corr[c] for c in CORRELATION_COLUMNS[1:]])
+    check(np.isfinite(vals).all() and (np.abs(vals[:, 0]) <= 1).all() and
+          ((vals[:, 1] >= 0) & (vals[:, 1] <= 1)).all(),
+          f"correlation.csv values {vals}")
+    print(f"correlation.csv ({len(names)} pairs at 512x512, alpha 1.0, "
+          f"--fast-conv), median correlation: " + ", ".join(
+              f"{c} {v:.6f}" for c, v in zip(CORRELATION_COLUMNS[1:],
+                                             vals[:, 0])))
+    boxes = read_csv(res / "prediction" / "ae_boxes_3.csv")
+    stats = np.array([boxes[c] for c in boxes.columns[2:]])
+    check(set(boxes["Type"]) == {"KB", "AVG", "UNet_l1", "UNet_l1ws"} and
+          np.isfinite(stats).all() and
+          (np.diff(stats[[0, 2, 3, 4, 6]], axis=0) >= 0).all(),
+          "ae_boxes_3.csv")
+    print(f"ae_boxes_3.csv: {len(boxes)} buckets over the "
+          f"{len(parts['te'])} covers of split_te, each min <= q25 <= q50 "
+          f"<= q75 <= max")
+
+    # each figure not drawn named on stderr; the dots image
+    stem = covers[0].stem
+    for label, figs in (("error-boxes", ["ae_boxes_3.png"]),
+                        ("contour", [f"contour_KB_{stem}.png",
+                                     f"contour_unet_{stem}.png"]),
+                        ("saliency", ["saliency_LSBR.png"])):
+        for fig in figs:
+            check(f"{fig} not drawn" in runs[label]["stderr"],
+                  f"{label}: {fig} not named on stderr")
+    check([p.name for p in res.rglob("*.png")] ==
+          ["saliency_image_dots.png"], "a figure was drawn, or no dots")
+    dots = read_png(res / "prediction" / "saliency_image_dots.png")
+    want = np.repeat(imread_gray_u8(root / image)[..., None], 3, axis=-1)
+    for loc in sobel_locations(root / image).values():
+        want[loc[:2]] = [255, 0, 0]
+    check(np.array_equal(dots, want),
+          "saliency_image_dots.png != the image with red dots")
+    print("figures not drawn (no matplotlib), each named on stderr: "
+          "ae_boxes_3.png, both contours, saliency_LSBR.png; "
+          "saliency_image_dots.png decodes to the image with red pixels "
+          "at sobel_locations")
+
+    # B1's launches by variant: f32 forwards, 9 fma + 1 direct each
+    for label in ("correlation", "error-boxes", "contour", "saliency"):
+        v = runs[label]["b1_by_variant"]
+        check(v["fma"] > 0 and v["fma"] == 9 * v["direct"] and
+              v["wgmma"] == 0, f"{label}: B1 launches {v}")
+    check(runs["correlation"]["b1_by_variant"]["direct"] ==
+          3 * -(-len(names) // 8),
+          "correlation: not one B1 forward a batch of 8 for each U-Net")
+    return runs
+
+
+def holdout_analyses_path(smi_line: str) -> dict:
+    """Phase 17: the holdout tables and the analyses from PNG files, each
+    in a process where pandas, PIL, cv2, matplotlib and seaborn cannot be
+    imported, every B1 and B2 launch held to its plain version and
+    counted.  (a) ``holdout_roc`` on p128; (b) the analysis session at
+    512x512."""
+    job = ANALYSES_JOB
+    shutil.rmtree(job, ignore_errors=True)
+    job.mkdir(parents=True)
+    t0 = time.perf_counter()
+    runs = {"holdout_roc": holdout_path(job, smi_line)}
+    print(f"phase 17 (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs.update(session_path(job, smi_line))
+    print(f"phase 17 (b): {time.perf_counter() - t0:.1f} s")
+    b1 = sum(r["b1"] for r in runs.values())
+    b2 = sum(r["b2"] for r in runs.values())
+    by_variant = {k: sum(r["b1_by_variant"][k] for r in runs.values())
+                  for k in ("wgmma", "direct", "fma")}
+    out = {"b1_launches": b1, "b2_launches": b2,
+           "b1_by_variant": by_variant,
+           "b1_max_err": max(r["b1_max_err"] for r in runs.values()),
+           "b2_max_err": max(r["b2_max_err"] for r in runs.values()),
+           "process_s": {k: round(r["process_s"], 2)
+                         for k, r in runs.items()}}
+    print(f"phase 17 ({smi_line}): B1 {b1} launches "
+          f"{json.dumps(by_variant)}, max |err| {out['b1_max_err']:.3e}; "
+          f"B2 {b2} launches, max |err| {out['b2_max_err']:.3e}; each held "
+          f"to its plain version; process seconds " +
+          json.dumps(out["process_s"]))
+    return out
 
 
 def main() -> int:
@@ -3768,6 +4169,10 @@ def main() -> int:
     pngs = png_path(smi.stdout.strip().splitlines()[0], det)
     t = phase(16, "the detection path from PNG files", t)
 
+    # ---- 17. the holdout tables and the analyses from PNG files
+    hold = holdout_analyses_path(smi.stdout.strip().splitlines()[0])
+    t = phase(17, "the holdout tables and the analyses from PNG files", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -3781,7 +4186,8 @@ def main() -> int:
         "launches_bench_path": ben["b2_launches"],
         "launches_png_path": pngs["b2_launches"],
         "launches_png_path_checked": pngs["b2_checked"],
-        "max_abs_err": max(max_err, pngs["b2_max_err"]),
+        "launches_holdout_analyses_path": hold["b2_launches"],
+        "max_abs_err": max(max_err, pngs["b2_max_err"], hold["b2_max_err"]),
         "ms": b2_entry["ms"],
         "eager_ms": b2_entry["eager_ms"],
         "plain_ms": b2_entry["plain_ms"],
@@ -3803,7 +4209,10 @@ def main() -> int:
         "launches_bench_path": ben["b1_launches"],
         "launches_png_path": pngs["b1_launches"],
         "launches_png_path_checked": pngs["b1_checked"],
-        "max_abs_err": max(*b1_err_max.values(), pngs["b1_max_err"]),
+        "launches_holdout_analyses_path": hold["b1_launches"],
+        "launches_holdout_analyses_path_by_variant": hold["b1_by_variant"],
+        "max_abs_err": max(*b1_err_max.values(), pngs["b1_max_err"],
+                           hold["b1_max_err"]),
         **b1_entry,
     }]}))
     print(json.dumps({"ok": True, "device": {
@@ -3815,6 +4224,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-checked"]:
         sys.exit(cli_checked(pathlib.Path(sys.argv[2]), sys.argv[3:]))
+    if sys.argv[1:2] == ["--holdout-checked"]:
+        sys.exit(holdout_checked(pathlib.Path(sys.argv[2]), sys.argv[3:]))
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
                                pathlib.Path(sys.argv[4])))

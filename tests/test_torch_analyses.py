@@ -22,6 +22,12 @@ Bounds, and why:
   statistics at rtol 1e-5, U-Net statistics at rtol 1e-4 with the
   U-Net's per-pixel bound as atol (below): a bucket's minimum is one
   residual near 0, where 3.8e-6 is 4% of 9.5e-5.
+- the CSVs: the port's CLI, in a process where pandas, PIL, cv2,
+  matplotlib and seaborn cannot be imported, writes JAX's
+  ``correlation.csv`` and ``ae_boxes_3.csv`` byte for byte when given
+  JAX's per-pair rows and populations (``blocked_outputs``); on its own
+  numbers the header and labels are JAX's bytes and the numbers are held
+  as above, and each figure not drawn is named on stderr.
 - difference images: KB at atol 1e-4.  Not bit for bit: the prediction
   is a conv of x / 255 (values up to 1, an f32 ulp of 6e-8) times 255,
   and no plain order of the 9 taps reproduces XLA's CPU conv (the best
@@ -39,7 +45,8 @@ import pytest
 import torch
 
 import wsunet_tpu.analyses as jax_analyses
-from torch_p128 import REPO, make_catalog
+from torch_p128 import (LOAD_TABLE, REPO, frame, make_catalog,
+                        run_without_host_packages, save_columns)
 from wsunet_tpu.analyses import contour as jax_contour
 from wsunet_tpu.analyses import correlation as jax_correlation
 from wsunet_tpu.analyses import error_boxes as jax_boxes
@@ -169,9 +176,9 @@ def test_run_correlation_matches_jax(cat, jax_runs, fast_conv):
         "1", "AVG9", "AVG", "KB", "UNet_dropout_l1", "UNet_LSBR_l1ws",
         "UNet_HILLR_l1ws"]
     assert len(want) == 7 * 8
-    _assert_correlation_rows(res, want)
-    assert list(agg.columns) == list(jax_runs["agg"].columns)
-    assert list(agg.index) == list(jax_runs["agg"].index)
+    _assert_correlation_rows(frame(res), want)
+    assert agg.columns == [""] + list(jax_runs["agg"].columns)
+    assert list(agg[""]) == list(jax_runs["agg"].index)
 
 
 def test_cli_correlation_csv_matches_jax(cat, jax_runs, tmp_path):
@@ -194,12 +201,13 @@ def test_cli_correlation_csv_matches_jax(cat, jax_runs, tmp_path):
 def test_run_correlation_without_runs_has_the_filters_only(cat):
     """A method with no run, or no model directory, is skipped."""
     res, agg = run_correlation(cat, model_dir=None, device="cpu")
-    assert list(agg.columns) == ["1", "AVG9", "AVG", "KB"]
+    assert agg.columns == ["", "1", "AVG9", "AVG", "KB"]
     res, _ = run_correlation(cat, model_dir=PORT_MODELS,
                              filter_names=("KB",), unet_methods=("LSBR",
                                                                  "nope"),
                              device="cpu")
-    assert res["model_name"].unique().tolist() == ["KB", "UNet_LSBR_l1ws"]
+    assert frame(res)["model_name"].unique().tolist() == [
+        "KB", "UNet_LSBR_l1ws"]
 
 
 def test_subset_residual_draws_jax_indices():
@@ -227,7 +235,7 @@ def test_box_stats_equal_jax_bucket_quantiles_bit_for_bit(seed, kb_max):
     included (kb_max 12 leaves the top bucket empty, 2 all but one)."""
     pops = _populations(seed, kb_max=kb_max)
     want = jax_boxes.bucket_quantiles(dict(pops), anchor="KB")
-    got = bucket_quantiles(dict(pops), anchor="KB")
+    got = frame(bucket_quantiles(dict(pops), anchor="KB"))
     assert list(got.columns) == list(want.columns)
     pd.testing.assert_frame_equal(got.reset_index(drop=True),
                                   want.reset_index(drop=True),
@@ -236,7 +244,7 @@ def test_box_stats_equal_jax_bucket_quantiles_bit_for_bit(seed, kb_max):
 
 def test_box_stats_on_jax_populations_bit_for_bit(jax_runs):
     pops = jax_runs["populations"]
-    got = bucket_quantiles(pops, anchor="KB")
+    got = frame(bucket_quantiles(pops, anchor="KB"))
     pd.testing.assert_frame_equal(
         got.reset_index(drop=True),
         jax_runs["boxes"].reset_index(drop=True), check_exact=True)
@@ -264,7 +272,7 @@ def test_run_error_boxes_matches_jax(cat, jax_runs):
     got = run_error_boxes(cat, model_dir=PORT_MODELS, batch_size=3,
                           device="cpu")
     assert set(got["Type"]) == {"KB", "AVG", "UNet_l1", "UNet_l1ws"}
-    _assert_boxes_match(got, jax_runs["boxes"])
+    _assert_boxes_match(frame(got), jax_runs["boxes"])
 
 
 def test_cli_ae_boxes_csv_matches_jax(cat, jax_runs, tmp_path):
@@ -323,3 +331,92 @@ def test_analyses_device_rule(cat):
         run_correlation(cat)
     with pytest.raises(SystemExit, match="^error-boxes: CUDA is not"):
         torch_main(["error-boxes", "--data", str(cat)])
+
+
+# the CLI with JAX's per-pair rows and populations in place of its own
+_ON_JAX_NUMBERS = LOAD_TABLE + """
+import sys
+import numpy as np
+from wsunet_tpu_torch.analyses import correlation, error_boxes
+from wsunet_tpu_torch.cli import main
+rows = load_table(sys.argv[1])
+correlation.correlation_rows = lambda *a, **k: [
+    dict(zip(rows.columns, r)) for r in zip(*(rows[c] for c in rows.columns))]
+z = np.load(sys.argv[2], allow_pickle=True)
+pops = {str(k): z[f"p{i}"] for i, k in enumerate(z["labels"])}
+error_boxes.residual_populations = lambda *a, **k: dict(pops)
+for cmd in ("correlation", "error-boxes"):
+    assert main([cmd, *sys.argv[3:]]) == 0
+"""
+
+
+@pytest.fixture(scope="module")
+def blocked_outputs(cat, jax_runs, tmp_path_factory):
+    """The port's ``correlation``, ``error-boxes`` (both ``--fast-conv``)
+    and ``contour`` in processes without the five host packages, on its
+    own numbers (``own``) and, for the first two, on JAX's per-pair rows
+    and populations (``jax_numbers``); the stderr of each."""
+    tmp = tmp_path_factory.mktemp("blocked")
+    base = ["--data", cat, "--model-dir", PORT_MODELS, "--device", "cpu"]
+    own = tmp / "own"
+    errs = {cmd: run_without_host_packages(
+        [cmd, *base, "--results", own, *extra], tmp).stderr
+        for cmd, extra in (
+            ("correlation", ["--fast-conv"]),
+            ("error-boxes", ["--fast-conv"]),
+            ("contour", ["--fast-conv", "--image",
+                         "images/" + _first_cover(cat)]))}
+    save_columns(jax_runs["rows"], tmp / "rows.npz")
+    pops = jax_runs["populations"]
+    np.savez(tmp / "pops.npz", labels=np.array(list(pops), dtype=object),
+             **{f"p{i}": v for i, v in enumerate(pops.values())})
+    run_without_host_packages(
+        [tmp / "rows.npz", tmp / "pops.npz", *base, "--results",
+         tmp / "jax_numbers"], tmp, code=_ON_JAX_NUMBERS)
+    return {"own": own, "jax_numbers": tmp / "jax_numbers", "errs": errs}
+
+
+@pytest.mark.parametrize("rel", ["estimation/correlation.csv",
+                                 "prediction/ae_boxes_3.csv"])
+def test_cli_csv_without_host_packages_is_jax_bytes_on_jax_numbers(
+        jax_runs, blocked_outputs, rel):
+    """``correlation`` and ``error-boxes`` where pandas, PIL, cv2,
+    matplotlib and seaborn cannot be imported, on the per-pair rows and
+    populations of the JAX CLI's run: its files, byte for byte."""
+    got = (blocked_outputs["jax_numbers"] / rel).read_bytes()
+    assert got == (jax_runs["dir"] / rel).read_bytes()
+    assert got.startswith(b",1,AVG9,AVG,KB,UNet_dropout_l1," if
+                          rel.startswith("estimation") else b"Type,")
+
+
+def test_cli_without_host_packages_on_its_own_numbers(cat, jax_runs,
+                                                      blocked_outputs):
+    """On the port's own numbers (B1's plain version here): the header
+    line and the row labels are JAX's bytes, the numbers within the
+    bounds above; each figure not drawn is named on stderr, and none is
+    written."""
+    own, errs = blocked_outputs["own"], blocked_outputs["errs"]
+    for rel, labels in (("estimation/correlation.csv", 1),
+                        ("prediction/ae_boxes_3.csv", 2)):
+        got = (own / rel).read_text().splitlines()
+        want = (jax_runs["dir"] / rel).read_text().splitlines()
+        assert got[0] == want[0] and len(got) == len(want)
+        assert [r.split(",")[:labels] for r in got] == \
+            [r.split(",")[:labels] for r in want]
+    got = pd.read_csv(own / "estimation/correlation.csv", index_col=0)
+    want = pd.read_csv(jax_runs["dir"] / "estimation/correlation.csv",
+                       index_col=0)
+    for label in want.columns:
+        np.testing.assert_allclose(got.loc["correlation", label],
+                                   want.loc["correlation", label],
+                                   rtol=_rtol(label), err_msg=label)
+        _assert_log_p([got.loc["p-value", label]],
+                      [want.loc["p-value", label]], label)
+    _assert_boxes_match(pd.read_csv(own / "prediction/ae_boxes_3.csv"),
+                        pd.read_csv(jax_runs["dir"] /
+                                    "prediction/ae_boxes_3.csv"))
+    assert "ae_boxes_3.png not drawn" in errs["error-boxes"]
+    stem = _first_cover(cat)[:-len(".png")]
+    for model in ("KB", "unet"):
+        assert f"contour_{model}_{stem}.png not drawn" in errs["contour"]
+    assert not list(own.rglob("*.png"))

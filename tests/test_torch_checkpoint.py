@@ -20,7 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_p128 import P128, REPO
+from torch_p128 import P128, REPO, frame
 from wsunet_tpu.models import get_model as jax_get_model
 from wsunet_tpu.utils import registry as jax_registry
 from wsunet_tpu.ws.unet_eval import load_pretrained_unet as jax_load
@@ -243,7 +243,7 @@ def test_registry_matches_jax_and_raises(tmp_path):
     _fake_run(tmp_path, "LSBR", "c", "l1", params=False)
     _fake_run(tmp_path, "LSBR", "d", "l1", debug=True)
     _fake_run(tmp_path, "dropout", "e", "l1")
-    got = registry.scan_models(tmp_path, "LSBR").to_pandas().sort_values(
+    got = frame(registry.scan_models(tmp_path, "LSBR")).sort_values(
         "model_name")
     want = jax_registry.scan_models(tmp_path, "LSBR").sort_values(
         "model_name")

@@ -11,16 +11,20 @@ folds made from ``data_ablation/p128/split_{tr,va}.csv`` on a catalog of
 fits on the other 16; fold 1 the reverse).  Scores are held as in tests/test_torch_runs.py (KB
 rtol 1e-4 / atol 1e-6), tests/test_torch_ols.py (OLS 2e-4) and
 tests/test_torch_b0.py (P(stego) 1e-4).  The tables ``holdout_roc`` writes
-equal JAX's on the same scores bit for bit; on each package's own scores
+equal JAX's on the same scores bit for bit, and their files JAX's byte for
+byte, also where the port runs in a process without pandas, PIL, cv2,
+matplotlib or seaborn (``blocked_roc``); on each package's own scores
 they agree within one near-tie
-(``test_pooled_roc_within_a_near_tie_of_jax``).
+(``test_pooled_roc_within_a_near_tie_of_jax``).  The port's functions
+return ``utils.table`` tables, compared through ``frame``.
 """
 
 import numpy as np
 import pandas as pd
 import pytest
 
-from torch_p128 import P128, REPO, frame, make_catalog
+from torch_p128 import (LOAD_TABLE, P128, REPO, frame, make_catalog,
+                        run_without_host_packages, save_columns)
 from wsunet_tpu.detect import Fold as JaxFold
 from wsunet_tpu.detect import ci as jax_ci
 from wsunet_tpu.detect import holdout_frames as jax_holdout_frames
@@ -91,8 +95,9 @@ def test_bootstrap_roc_cis_is_bitwise_jax():
                                         "alpha": alpha, col: vals}))
     df = pd.concat(frames, ignore_index=True)
     got = bootstrap_roc_cis(df, n_boot=500)
-    pd.testing.assert_frame_equal(got, jax_ci.bootstrap_roc_cis(
-        df, n_boot=500), check_exact=True)
+    want = jax_ci.bootstrap_roc_cis(df, n_boot=500)
+    pd.testing.assert_frame_equal(frame(got), want, check_exact=True)
+    assert got.to_csv() == want.to_csv(index=False)
     assert len(got) == 6
 
 
@@ -138,7 +143,7 @@ def frames(cat):
 
 
 def test_holdout_frames_match_jax(frames):
-    got, want = frames
+    got, want = frame(frames[0]), frames[1]
     assert list(got.columns) == list(want.columns)
     got, want = got.reset_index(drop=True), want.reset_index(drop=True)
     assert len(got) == len(want) == 3 * 96
@@ -173,18 +178,20 @@ def roc_outputs(cat, frames, tmp_path_factory):
 
     out, calls = {}, []
 
-    def recorded(data_path, folds, **kw):
-        calls.append((data_path, [f.eval_split for f in folds], kw))
-        return frames[0].copy()
+    def recorded(scores):
+        def holdout_frames(data_path, folds, **kw):
+            calls.append((data_path, [f.eval_split for f in folds], kw))
+            return scores.copy()
+        return holdout_frames
 
-    for pkg, fn, module, cls, b0_dir, extra in (
+    for pkg, fn, module, cls, b0_dir, extra, scores in (
             ("torch", holdout_roc, port_holdout, Fold,
-             REPO / "weights" / "b0", {"device": "cpu"}),
+             REPO / "weights" / "b0", {"device": "cpu"}, frames[0]),
             ("jax", jax_holdout_roc, jax_holdout, JaxFold,
-             REPO / "models" / "b0", {})):
+             REPO / "models" / "b0", {}, frame(frames[0]))):
         res = tmp_path_factory.mktemp(pkg)
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(module, "holdout_frames", recorded)
+            mp.setattr(module, "holdout_frames", recorded(scores))
             out[pkg] = (fn(cat, _folds(cls, cat, b0_dir), results_dir=res,
                            suffix="t", **KW, **extra), res / "detection")
     assert calls[0] == (cat, ["eval_fold0.csv", "eval_fold1.csv"],
@@ -199,10 +206,12 @@ def test_holdout_roc_tables_equal_jax(roc_outputs, name):
     got = pd.read_csv(roc_outputs["torch"][1] / name)
     want = pd.read_csv(roc_outputs["jax"][1] / name)
     pd.testing.assert_frame_equal(got, want, check_exact=True)
+    assert (roc_outputs["torch"][1] / name).read_bytes() == \
+        (roc_outputs["jax"][1] / name).read_bytes()
 
 
 def test_holdout_roc_returns_the_auc_table(roc_outputs):
-    got, want = roc_outputs["torch"][0], roc_outputs["jax"][0]
+    got, want = frame(roc_outputs["torch"][0]), roc_outputs["jax"][0]
     pd.testing.assert_frame_equal(got.reset_index(drop=True),
                                   want.reset_index(drop=True))
     assert got["model_name"].tolist() == ["B0fold", "KB", "OLS"]
@@ -235,6 +244,49 @@ def test_pooled_roc_within_a_near_tie_of_jax(frames):
         for k, b in bound.items():
             assert abs(got.loc[model, k] - want.loc[model, k]) <= b, \
                 (model, k, got.loc[model, k], want.loc[model, k])
+
+
+_BLOCKED_ROC = LOAD_TABLE + """
+import sys
+from wsunet_tpu_torch.detect import Fold, holdout
+scores = load_table(sys.argv[1])
+holdout.holdout_frames = lambda data_path, folds, **kw: scores
+holdout.holdout_roc(sys.argv[2], [Fold(eval_split="eval_fold0.csv")],
+                    results_dir=sys.argv[3], suffix="t",
+                    alphas=(0.1, 0.01))
+"""
+
+
+@pytest.fixture(scope="module")
+def blocked_roc(cat, frames, tmp_path_factory):
+    """JAX's ``holdout_roc`` on JAX's own frames, and the port's on the
+    same frames in a process without the five host packages (the
+    columns passed as numpy arrays); both results directories."""
+    import wsunet_tpu.detect.holdout as jax_holdout
+
+    tmp = tmp_path_factory.mktemp("blocked_roc")
+    save_columns(frames[1], tmp / "scores.npz")
+    run_without_host_packages([tmp / "scores.npz", cat, tmp / "port"], tmp,
+                              code=_BLOCKED_ROC)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_holdout, "holdout_frames",
+                   lambda data_path, folds, **kw: frames[1].copy())
+        jax_holdout_roc(cat, [JaxFold(eval_split="eval_fold0.csv")],
+                        results_dir=tmp / "jax", suffix="t",
+                        alphas=(0.1, 0.01))
+    return tmp / "port" / "detection", tmp / "jax" / "detection"
+
+
+@pytest.mark.parametrize("name", ["auc_0.01_t.csv", "auc_0.01_t_ci.csv",
+                                  "auc_by_alpha_t.csv", "roc_0.01_t.csv",
+                                  "scores_t.csv"])
+def test_holdout_files_without_host_packages_are_jax_bytes(blocked_roc,
+                                                           name):
+    """Where pandas, PIL, cv2, matplotlib and seaborn cannot be imported,
+    ``holdout_roc`` on JAX's per-image scores writes JAX's files, byte for
+    byte."""
+    port, jax = blocked_roc
+    assert (port / name).read_bytes() == (jax / name).read_bytes()
 
 
 def test_holdout_ols_needs_a_train_split(cat):

@@ -4,7 +4,12 @@ CPU, and the profiling and NaN hooks that wrap every command
 (``utils.profiling``: ``WSUNET_PROFILE``, ``WSUNET_DEBUG_NANS``).
 
 - ``init-dataset``: ``files.csv`` and ``split_{tr,va,te}.csv`` byte for
-  byte JAX's, on a tree with a stego subdirectory.
+  byte JAX's, on a tree with a stego subdirectory, also in a process where
+  pandas, PIL, cv2, matplotlib and seaborn cannot be imported, and where
+  the stego ``files.csv`` lacks the size columns (pandas' ``concat`` then
+  writes the covers' sizes as floats).  PNG sizes come from the IHDR
+  alone, so 16-bit and interlaced files are sized as PIL sizes them;
+  without PIL a ``.jpg`` raises a ``UserError`` naming it.
 - ``serve --device cpu --dtype float32 --size 128`` on the committed LSBR
   ``unet_2`` (JAX from ``models/unet``, the port from ``weights/unet``):
   the JSON lines of both loops (paths streamed, stdin serial) name the
@@ -22,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_p128 import P128, REPO, make_catalog
+from torch_p128 import P128, REPO, make_catalog, run_without_host_packages
 from wsunet_tpu.cli import main as jax_main
 from wsunet_tpu_torch.cli import main as torch_main
 from wsunet_tpu_torch.ops import fused_reflect_conv
@@ -63,6 +68,110 @@ def test_init_dataset_files_equal_jax_byte_for_byte(tmp_path):
     with pytest.raises(SystemExit, match="^init-dataset: no images"):
         (tmp_path / "empty" / "images").mkdir(parents=True)
         torch_main(["init-dataset", "--data", str(tmp_path / "empty")])
+
+
+INIT_FILES = ["images/files.csv", "split_tr.csv", "split_va.csv",
+              "split_te.csv"]
+
+
+@pytest.mark.parametrize("stego", ["with sizes", "without sizes"])
+def test_init_dataset_without_host_packages_is_jax_bytes(tmp_path, stego):
+    import pandas as pd
+
+    a = make_catalog(tmp_path / "jax", n=8, alphas=(0.1,))
+    if stego == "without sizes":
+        fcsv = a / "stego_LSBr_alpha_0.1_independent_images" / "files.csv"
+        pd.read_csv(fcsv).drop(columns=["height", "width"]).to_csv(
+            fcsv, index=False)
+    b = tmp_path / "port"
+    shutil.copytree(a, b)
+    assert jax_main(["init-dataset", "--data", str(a)]) == 0
+    run_without_host_packages(["init-dataset", "--data", b], tmp_path)
+    for rel in INIT_FILES:
+        assert (b / rel).read_bytes() == (a / rel).read_bytes(), rel
+    floats = ",128.0,128.0," in (b / "split_tr.csv").read_text()
+    assert floats == (stego == "without sizes")
+
+
+def _interlaced_png(path, img: np.ndarray) -> None:
+    """An 8-bit gray Adam7-interlaced PNG of ``img`` (filter 0 rows)."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body +
+                struct.pack(">I", zlib.crc32(kind + body)))
+
+    h, w = img.shape
+    raw = b""
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        sub = img[y0::dy, x0::dx]
+        if sub.size:
+            raw += b"".join(b"\0" + row.tobytes() for row in sub)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 1)) +
+        chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def test_init_dataset_sizes_16_bit_and_interlaced_pngs_as_pil(tmp_path):
+    """``io.png.read`` rejects both files; ``image_size`` reads their
+    IHDR, and ``init-dataset`` without the host packages writes the JAX
+    CLI's (PIL's) sizes."""
+    from PIL import Image
+
+    from wsunet_tpu_torch.io import image_size
+    from wsunet_tpu_torch.io.png import png_size, read_png
+    from wsunet_tpu_torch.utils.errors import UserError
+
+    a = tmp_path / "jax"
+    (a / "images").mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    deep = rng.integers(0, 65536, (21, 37)).astype(np.uint16)
+    Image.fromarray(deep).save(a / "images" / "deep.png")
+    laced = rng.integers(0, 256, (10, 13)).astype(np.uint8)
+    _interlaced_png(a / "images" / "laced.png", laced)
+    shutil.copyfile(P128 / "images" / "6_00.png", a / "images" / "6_00.png")
+    with Image.open(a / "images" / "laced.png") as im:
+        np.testing.assert_array_equal(np.asarray(im), laced)
+    for name, size in (("deep", (37, 21)), ("laced", (13, 10))):
+        p = a / "images" / f"{name}.png"
+        with Image.open(p) as im:
+            assert image_size(p) == png_size(p) == im.size == size
+        with pytest.raises(UserError, match="unsupported PNG"):
+            read_png(p)
+    b = tmp_path / "port"
+    shutil.copytree(a, b)
+    assert jax_main(["init-dataset", "--data", str(a)]) == 0
+    run_without_host_packages(["init-dataset", "--data", b], tmp_path)
+    for rel in INIT_FILES:
+        assert (b / rel).read_bytes() == (a / rel).read_bytes(), rel
+    assert "images/deep.png,21,37" in (b / "images/files.csv").read_text()
+
+
+def test_init_dataset_needs_pil_for_a_jpg(tmp_path):
+    """Without PIL a ``.jpg`` cover raises a ``UserError`` naming it (one
+    line from the CLI); with PIL the files are JAX's."""
+    from PIL import Image
+
+    a = tmp_path / "jax"
+    (a / "images").mkdir(parents=True)
+    shutil.copyfile(P128 / "images" / "6_00.png", a / "images" / "6_00.png")
+    Image.fromarray(np.full((24, 40), 100, np.uint8)).save(
+        a / "images" / "x.jpg")
+    b = tmp_path / "port"
+    shutil.copytree(a, b)
+    proc = run_without_host_packages(["init-dataset", "--data", b],
+                                     tmp_path, check=False)
+    assert proc.returncode != 0
+    assert proc.stderr.strip().splitlines()[-1] == (
+        f"init-dataset: {b / 'images' / 'x.jpg'}: only PNG sizes are read "
+        f"without PIL, which is not installed")
+    assert jax_main(["init-dataset", "--data", str(a)]) == 0
+    assert torch_main(["init-dataset", "--data", str(b)]) == 0
+    for rel in INIT_FILES:
+        assert (b / rel).read_bytes() == (a / rel).read_bytes(), rel
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,9 @@ Each module is imported in a fresh interpreter in which those packages
 cannot be imported at all; and every import statement of the sources is
 read, function bodies included.  The detection path (``simulate``,
 ``ws-eval``, ``roc --b0``) runs in such an interpreter, and loads none of
-pandas, PIL, cv2, matplotlib or seaborn."""
+pandas, PIL, cv2, matplotlib or seaborn; so do ``init_dataset``,
+``bootstrap_roc_cis``, ``holdout_roc``, ``run_correlation`` and
+``bucket_quantiles``, called on a tiny catalog."""
 
 import ast
 import json
@@ -192,3 +194,69 @@ def test_the_detection_path_runs_without_the_host_packages(tmp_path):
     for name in ("estimation/ws_sweep_LSBR.csv", "detection/auc_0.1.csv",
                  "detection/roc_0.1.csv"):
         assert (tmp_path / "res" / name).stat().st_size > 0
+
+
+_CALL_PROBE = r"""
+import importlib.abc, json, pathlib, shutil, sys
+BLOCKED = set(json.loads(sys.argv[1]))
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import numpy as np
+from wsunet_tpu_torch.analyses import bucket_quantiles, run_correlation
+from wsunet_tpu_torch.cli import main
+from wsunet_tpu_torch.data.init_dataset import init_dataset
+from wsunet_tpu_torch.detect import Fold, bootstrap_roc_cis, holdout_roc
+from wsunet_tpu_torch.utils.table import Table, concat, read_csv
+src, root, res = (pathlib.Path(a) for a in sys.argv[2:5])
+(root / "images").mkdir(parents=True)
+for p in sorted(src.glob("*.png"))[:4]:
+    shutil.copyfile(p, root / "images" / p.name)
+cat = init_dataset(root, split_fractions=(0.5, 0.5, 0.0))
+main(["simulate", "--data", str(root), "--device", "cpu", "--alphas",
+      "0.1", "1.0"])
+stego = read_csv(root / "stego_LSBr_alpha_0.1_independent_images" /
+                 "files.csv")
+concat([cat, stego]).to_csv(root / "eval.csv")
+out = {"init_dataset": len(cat)}
+out["holdout_roc"] = len(holdout_roc(
+    root, [Fold(eval_split="eval.csv")], results_dir=res,
+    filter_models=("KB",), stego_methods=("LSBR",), alphas=(0.1,),
+    device="cpu"))
+scores = read_csv(res / "detection" / "scores_holdout.csv")
+out["bootstrap_roc_cis"] = len(bootstrap_roc_cis(scores, n_boot=50))
+rows, agg = run_correlation(root, filter_names=("KB", "AVG"),
+                            unet_methods=(), device="cpu")
+out["run_correlation"] = [len(rows), agg.columns]
+rng = np.random.default_rng(0)
+out["bucket_quantiles"] = len(bucket_quantiles(
+    {"KB": rng.integers(0, 20, 500) / 2.0, "AVG": rng.random(500)}, "KB"))
+out["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps(out))
+"""
+
+
+def test_the_tables_and_analyses_are_called_without_the_host_packages(
+        tmp_path):
+    """``init_dataset``, ``bootstrap_roc_cis``, ``holdout_roc``,
+    ``run_correlation`` and ``bucket_quantiles`` are called, not only
+    imported, in an interpreter where pandas, PIL, cv2, matplotlib and
+    seaborn cannot be imported, and none of those packages loads."""
+    host = ["pandas", "PIL", "cv2", "matplotlib", "seaborn"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _CALL_PROBE, json.dumps(host),
+         str(REPO / "data_ablation" / "p128" / "images"),
+         str(tmp_path / "cat"), str(tmp_path / "res")],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"init_dataset": 4, "holdout_roc": 1,
+                   "bootstrap_roc_cis": 1,
+                   "run_correlation": [8, ["", "KB", "AVG"]],
+                   "bucket_quantiles": 10, "loaded": []}
+    for name in ("auc_0.1_holdout.csv", "auc_0.1_holdout_ci.csv",
+                 "roc_0.1_holdout.csv", "auc_by_alpha_holdout.csv"):
+        assert (tmp_path / "res" / "detection" / name).stat().st_size > 0

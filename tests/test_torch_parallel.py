@@ -111,6 +111,7 @@ def case_spatial(job: pathlib.Path) -> dict:
 def case_sweeps(job: pathlib.Path) -> dict:
     import pandas as pd
 
+    from torch_p128 import frame
     from wsunet_tpu_torch.detect import b0_run
     from wsunet_tpu_torch.parallel import set_eval_devices
     from wsunet_tpu_torch.ws import unet_run, ws_run
@@ -120,18 +121,18 @@ def case_sweeps(job: pathlib.Path) -> dict:
     def frames():
         # the port's rows are tables; compared here as DataFrames
         ws = pd.concat(
-            [ws_run(cat, "LSBR", 0.1, m, batch_size=SWEEP_BATCH,
-                    device="cpu").to_pandas()
+            [frame(ws_run(cat, "LSBR", 0.1, m, batch_size=SWEEP_BATCH,
+                          device="cpu"))
              for m in ("KB", "KB-w", "OLS")] +
-            [ws_run(cat, None, None, "KB", batch_size=SWEEP_BATCH,
-                    device="cpu").to_pandas()]).reset_index(drop=True)
+            [frame(ws_run(cat, None, None, "KB", batch_size=SWEEP_BATCH,
+                          device="cpu"))]).reset_index(drop=True)
         return {"ws": ws,
-                "unet": unet_run(cat, UNET_WEIGHTS, "LSBR",
-                                 batch_size=SWEEP_BATCH,
-                                 device="cpu").to_pandas(),
-                "b0": b0_run(cat, B0_WEIGHTS, "LSBR",
-                             batch_size=SWEEP_BATCH,
-                             device="cpu").to_pandas()}
+                "unet": frame(unet_run(cat, UNET_WEIGHTS, "LSBR",
+                                       batch_size=SWEEP_BATCH,
+                                       device="cpu")),
+                "b0": frame(b0_run(cat, B0_WEIGHTS, "LSBR",
+                                   batch_size=SWEEP_BATCH,
+                                   device="cpu"))}
 
     set_eval_devices(1)
     try:

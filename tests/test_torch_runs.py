@@ -199,7 +199,7 @@ def test_table_round_trip_equals_pandas_on_the_jax_cli_outputs(cli_outputs,
     path = cli_outputs["jax"] / name
     t, df = table.read_csv(path), pd.read_csv(path)
     assert t.to_csv() == df.to_csv(index=False)
-    pd.testing.assert_frame_equal(t.to_pandas(), df)
+    pd.testing.assert_frame_equal(frame(t), df)
 
 
 def test_simulate_without_host_packages_writes_the_ports_files(cat,

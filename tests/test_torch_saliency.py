@@ -12,6 +12,12 @@ seen).  The fast routes sum their convs in another order; where a 2x2
 max-pool window holds two values within ~1e-6 of each other, that can
 move the pooled maximum, and the gradient, to the other element: 4.6e-5
 seen at (20, 30), <=2e-7 elsewhere.  So atol 1e-4 there.
+
+``render_dots`` writes its RGB PNG with the port's own encoder
+(``io.png.write_png``): its pixels are JAX's PIL file's, its bytes need
+not be.  Where matplotlib cannot be imported, ``saliency`` still computes
+the patches, says on stderr that the grid was not drawn, and writes the
+dots file.
 """
 
 import json
@@ -37,6 +43,7 @@ from wsunet_tpu_torch.io import imread_gray_u8
 from wsunet_tpu_torch.models import get_model, unet_state_dict_from_flax
 from wsunet_tpu_torch.ops import fused_reflect_conv
 from wsunet_tpu_torch.utils.errors import UserError
+from torch_p128 import run_without_host_packages
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MODEL_DIR = REPO / "models" / "unet"
@@ -176,3 +183,28 @@ def test_plot_saliency_grid_loads_the_run_once(tmp_path, monkeypatch):
                              POINTS + [(9, 25)], tmp_path / "g.png",
                              device="cpu")
     assert out.stat().st_size > 0 and len(loads) == 1
+
+
+def test_cli_saliency_without_host_packages(tmp_path):
+    """``saliency --fast-conv`` in a process where pandas, PIL, cv2,
+    matplotlib and seaborn cannot be imported: the grid is named on
+    stderr as not drawn, and the dots file decodes to JAX's pixels, red
+    at the four points."""
+    from PIL import Image
+
+    from wsunet_tpu_torch.io.png import read_png
+
+    points = json.dumps([list(p) for p in POINTS] + [[9, 25]])
+    proc = run_without_host_packages(
+        ["saliency", "--data", IMAGE.parents[1], "--image",
+         "images/6_00.png", "--points", points, "--results", tmp_path,
+         "--device", "cpu", "--fast-conv"], tmp_path)
+    assert "saliency_LSBR.png not drawn" in proc.stderr
+    out = tmp_path / "prediction"
+    assert sorted(p.name for p in out.iterdir()) == [
+        "saliency_image_dots.png"]
+    want = jax_render_dots(IMAGE, tmp_path / "jax.png")
+    got = read_png(out / "saliency_image_dots.png")
+    np.testing.assert_array_equal(got, np.asarray(Image.open(want)))
+    for loc in jax_sobel(IMAGE).values():
+        assert tuple(got[tuple(map(int, loc[:2]))]) == (255, 0, 0)

@@ -12,6 +12,10 @@ pandas, on the CPU.
 - ``concat``, ``sort``, ``groups``, ``drop_duplicates``, ``fillna``,
   ``from_rows`` and ``to_csv`` of float32, bool and text columns with
   NaN, against pandas on the same data.
+- An empty header cell reads as ``Unnamed: <j>``, as pandas names it
+  (``results/estimation/correlation.csv``, written with an unnamed
+  index); ``medians`` is ``groupby(...).median()`` (NaN skipped) and
+  ``insert`` is ``DataFrame.insert``.
 """
 
 import io
@@ -20,7 +24,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from torch_p128 import REPO
+from torch_p128 import REPO, frame
 from wsunet_tpu_torch.utils import table
 from wsunet_tpu_torch.utils.table import Table
 
@@ -34,7 +38,7 @@ def round_trip_equals_pandas(path):
     t = table.read_csv(path)
     df = pd.read_csv(path)
     assert t.to_csv() == df.to_csv(index=False)
-    pd.testing.assert_frame_equal(t.to_pandas(), df)
+    pd.testing.assert_frame_equal(frame(t), df)
 
 
 def test_there_are_csvs_to_read():
@@ -51,7 +55,7 @@ def test_device_column_stays_text(tmp_path):
     path.write_text("name,device,alpha\na.png,007,0.1\nb.png,,\n")
     t = table.read_csv(path, dtype={"device": str})
     df = pd.read_csv(path, dtype={"device": str})
-    pd.testing.assert_frame_equal(t.to_pandas(), df)
+    pd.testing.assert_frame_equal(frame(t), df)
     assert t.to_csv() == df.to_csv(index=False)
 
 
@@ -103,8 +107,8 @@ def _frames():
 def test_concat_equals_pandas():
     a, b = _frames()
     got = table.concat([a, b])
-    want = pd.concat([a.to_pandas(), b.to_pandas()]).reset_index(drop=True)
-    pd.testing.assert_frame_equal(got.to_pandas(), want)
+    want = pd.concat([frame(a), frame(b)]).reset_index(drop=True)
+    pd.testing.assert_frame_equal(frame(got), want)
     assert got.to_csv() == want.to_csv(index=False)
     assert got.columns == ["name", "i", "f32", "ok", "s"]
     assert got["f32"].dtype == np.float32 and got["ok"].dtype == object
@@ -113,16 +117,16 @@ def test_concat_equals_pandas():
 def test_sort_groups_duplicates_fillna_and_rows_equal_pandas():
     t = Table({"k": ["b", "a", "b", "a", np.nan],
                "m": ["y", "x", "x", "x", "z"], "v": [1, 2, 3, 2, 5]}, n=5)
-    df = t.to_pandas()
+    df = frame(t)
     s = t.sort(["k", "m"])
     want = df.sort_values(["k", "m"], kind="stable").reset_index(drop=True)
-    pd.testing.assert_frame_equal(s.to_pandas(), want)
+    pd.testing.assert_frame_equal(frame(s), want)
     keys = [k for k, _ in t.groups(["k", "m"])]
     assert keys == list(df.groupby(["k", "m"]).groups)
     for (k, m), g in t.groups(["k", "m"]):
         assert list(g["v"]) == list(df[(df.k == k) & (df.m == m)]["v"])
     pd.testing.assert_frame_equal(
-        t[["k", "v"]].drop_duplicates().to_pandas(),
+        frame(t[["k", "v"]].drop_duplicates()),
         df[["k", "v"]].drop_duplicates().reset_index(drop=True))
     np.testing.assert_array_equal(table.fillna(t["k"], "Cover"),
                                   df["k"].fillna("Cover").to_numpy())
@@ -131,7 +135,7 @@ def test_sort_groups_duplicates_fillna_and_rows_equal_pandas():
     np.testing.assert_array_equal(table.fillna(f, "Cover"),
                                   np.array(["Cover", 1.0], object))
     rows = [{"a": "x", "b": 1, "c": 0.5}, {"a": "y", "b": 2, "c": 0.25}]
-    pd.testing.assert_frame_equal(table.from_rows(rows).to_pandas(),
+    pd.testing.assert_frame_equal(frame(table.from_rows(rows)),
                                   pd.DataFrame(rows))
 
 
@@ -156,4 +160,52 @@ def test_to_csv_of_float32_bool_and_text_with_nan_equals_pandas():
                "b": [True, False, True, False],
                "s": np.array(["a", np.nan, "c,d", "e"], object),
                "o": np.array([True, np.nan, False, 0.5], object)}, n=4)
-    assert t.to_csv() == t.to_pandas().to_csv(index=False)
+    assert t.to_csv() == frame(t).to_csv(index=False)
+
+
+def test_an_empty_header_cell_is_named_as_pandas_names_it():
+    path = REPO / "results" / "estimation" / "correlation.csv"
+    t = table.read_csv(path)
+    assert t.columns[0] == "Unnamed: 0"
+    assert list(t["Unnamed: 0"]) == ["correlation", "p-value"]
+    round_trip_equals_pandas(path)
+
+
+def test_unnamed_header_cells_anywhere(tmp_path):
+    path = tmp_path / "t.csv"
+    path.write_text(",a,,b\nx,1,2.5,\ny,3,,z\n")
+    round_trip_equals_pandas(path)
+    assert table.read_csv(path).columns == ["Unnamed: 0", "a", "Unnamed: 2",
+                                            "b"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_medians_equal_pandas_groupby_median(seed):
+    """Odd and even groups, NaN in some values and keys, an all-NaN
+    group."""
+    rng = np.random.default_rng(seed)
+    n = 41
+    key = rng.choice(["KB", "1", "AVG", "UNet_x"], n).astype(object)
+    key[rng.random(n) < 0.1] = np.nan
+    a, b = rng.normal(size=n), rng.exponential(size=n) * 1e-9
+    a[rng.random(n) < 0.2] = np.nan
+    b[key == "AVG"] = np.nan
+    t = Table({"model_name": key, "correlation": a, "p-value": b})
+    got = t.medians("model_name", ["correlation", "p-value"])
+    want = frame(t).groupby("model_name")[
+        ["correlation", "p-value"]].median().reset_index()
+    pd.testing.assert_frame_equal(frame(got), want, check_exact=True)
+    assert got.to_csv() == want.to_csv(index=False)
+
+
+def test_insert_equals_pandas_insert():
+    t = Table({"a": [1, 2, 3], "b": ["x", "y", "z"]})
+    df = frame(t)
+    t.insert(0, "alpha", 0.01)
+    df.insert(0, "alpha", 0.01)
+    t.insert(2, "c", [True, False, True])
+    df.insert(2, "c", [True, False, True])
+    assert t.to_csv() == df.to_csv(index=False)
+    pd.testing.assert_frame_equal(frame(t), df)
+    with pytest.raises(ValueError, match="already exists"):
+        t.insert(0, "a", 1)

@@ -41,8 +41,10 @@ counterpart there (``tests/test_torch_*.py``).  The slices so far cover:
   ``filters-eval``: MAE and HILL-decile wMAE per cover).
 
 Importing the package needs only torch and numpy: no JAX, no triton, no
-pandas/PIL/matplotlib (the CSV and plotting edges import them inside
-their functions); the kernels need nvcc on the card's machine (``csrc/``).
+pandas/PIL/matplotlib; running any command needs none of them either
+(the CSVs are ``utils.table`` tables and the PNGs ``io.png``'s; figures
+are drawn where matplotlib imports, ``utils.figures``); the kernels need
+nvcc on the card's machine (``csrc/``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``, and
 raise when CUDA is missing (``_device``).
 """

@@ -2,7 +2,8 @@
 ``wsunet_tpu/analyses/contour.py``): ``x[1:-1, 1:-1] - x_hat`` of one image
 for a named filter or a trained U-Net (``difference_image``, on the
 device), and ``|d|`` drawn as an inverted-gray image (``plot_contour``,
-matplotlib on the host).
+where matplotlib is installed; otherwise one line on stderr says the
+figure was not drawn).
 """
 
 import pathlib
@@ -14,6 +15,7 @@ import torch
 from .._device import resolve_device
 from ..io import imread_gray_u8
 from ..ops.filters import NAMED_FILTERS_2D, filter_predict
+from ..utils.figures import plotting
 from ..utils.registry import get_model_name
 from ..ws.unet_eval import get_unet_estimator
 
@@ -45,19 +47,21 @@ def difference_image(
 
 
 def plot_contour(fname, d: np.ndarray, model_name: str,
-                 outdir: pathlib.Path) -> pathlib.Path:
-    """Save |d| as ``contour_<model>_<stem>.png``."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+                 outdir: pathlib.Path) -> typing.Optional[pathlib.Path]:
+    """Save |d| as ``contour_<model>_<stem>.png`` and return its path;
+    without matplotlib, say on stderr that it was not drawn and return
+    None."""
     outdir = pathlib.Path(outdir)
+    outname = outdir / f"contour_{model_name}_{pathlib.Path(fname).stem}.png"
+    mods = plotting("contour", outname, "matplotlib.pyplot")
+    if mods is None:
+        return None
+    _, plt = mods
     outdir.mkdir(parents=True, exist_ok=True)
     fig, ax = plt.subplots()
     ax.imshow(np.abs(d), vmin=0, vmax=60, cmap="gray_r",
               interpolation="nearest")
     ax.set_axis_off()
-    outname = outdir / f"contour_{model_name}_{pathlib.Path(fname).stem}.png"
     fig.savefig(outname, dpi=300, bbox_inches="tight", pad_inches=0)
     plt.close(fig)
     return outname

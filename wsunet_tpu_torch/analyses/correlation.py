@@ -15,9 +15,9 @@ latter.
   ``fast_conv=True``) predicts the stegos in batches of ``batch_size``.
   The JAX package predicts every stego in one call; the math is per
   image, so the rows are the same.  No pandas.
-- ``run_correlation``: the catalog edge (pandas): the pairs of a dataset,
-  the runs found by name, the rows as a frame and the median table of
-  ``correlation.csv``.
+- ``run_correlation``: the catalog edge: the pairs of a dataset, the runs
+  found by name, the rows as a table (``utils.table``) and
+  ``median_table``, the table of ``correlation.csv``.  No pandas.
 """
 
 import pathlib
@@ -32,6 +32,7 @@ from ..io import imread_gray_u8
 from ..ops.filters import NAMED_FILTERS_2D, filter_predict
 from ..train.checkpoint import load_config
 from ..utils.registry import get_model_name
+from ..utils.table import Table, from_rows, isna
 from ..ws.unet_eval import get_unet_estimator
 
 FILTERS = ("1", "AVG9", "AVG", "KB")
@@ -114,6 +115,21 @@ def correlation_rows(
     return rows
 
 
+def median_table(res: Table) -> Table:
+    """The median correlation and p-value of each model over its pairs
+    (NaN skipped): a column ``''`` naming the two rows, then one column a
+    model in the order the models first appear, so that ``to_csv`` writes
+    the JAX package's ``correlation.csv`` (the transposed
+    ``groupby("model_name").median()`` written with its index)."""
+    med = res.medians("model_name", ["correlation", "p-value"])
+    at = {m: i for i, m in enumerate(med["model_name"])}
+    out = Table({"": ["correlation", "p-value"]}, n=2)
+    for m in dict.fromkeys(res["model_name"]):
+        out[m] = np.array([med["correlation"][at[m]],
+                           med["p-value"][at[m]]], np.float64)
+    return out
+
+
 def run_correlation(
     data_path: pathlib.Path,
     model_dir: pathlib.Path = None,
@@ -127,23 +143,18 @@ def run_correlation(
     batch_size: int = 8,
     fast_conv=False,
     device=None,
-):
+) -> typing.Tuple[Table, Table]:
     """Sweep the filters and the trained U-Nets over a dataset's pairs:
-    (per-pair frame, median table), the table ``correlation.csv`` holds."""
-    import pandas as pd
-
+    (per-pair rows, ``median_table``), the table ``correlation.csv``
+    holds."""
     from ..data.catalog import cover_stego_pairs
-    from ..utils.table import isna
 
     df = cover_stego_pairs(data_path, stego_method=stego_method, alpha=alpha,
                            split=split, take_num_images=take_num_images)
     df = df[~isna(df["name_s"])]
-    res = pd.DataFrame(correlation_rows(
+    res = from_rows(correlation_rows(
         data_path, list(df["name_c"]), list(df["name_s"]),
         filter_names=filter_names,
         unets=unet_runs(model_dir, unet_methods), orthodox=orthodox,
         batch_size=batch_size, fast_conv=fast_conv, device=device))
-    model_names = res.model_name.unique().tolist()
-    agg = res.groupby("model_name").agg(
-        {"correlation": "median", "p-value": "median"})
-    return res, agg.T[model_names]
+    return res, median_table(res)

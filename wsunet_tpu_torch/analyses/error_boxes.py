@@ -11,10 +11,12 @@ q50, q75, q75 + 1.5 IQR, max) under the ``ae_boxes_3.csv`` column names.
   ``reader=`` and a ``device=`` (``ops.filter_residuals`` and the U-Net
   estimator, in batches).  No pandas.
 - ``box_stats``: the statistics without pandas.  pandas' ``quantile`` is
-  numpy's linear percentile, so they equal ``bucket_quantiles``' (the JAX
-  package's table) bit for bit on the same populations.
-- ``bucket_quantiles`` / ``run_error_boxes``: the frame, the CSV and the
-  seaborn figure, on the host (pandas, matplotlib, seaborn).
+  numpy's linear percentile, so they equal the JAX package's
+  ``bucket_quantiles`` bit for bit on the same populations.
+- ``bucket_quantiles`` / ``run_error_boxes``: the table
+  (``utils.table``, pandas' CSV bytes) and ``ae_boxes_3.csv``, then the
+  seaborn figure where matplotlib and seaborn import (otherwise one line
+  on stderr says it was not drawn).
 """
 
 import collections
@@ -29,7 +31,9 @@ from ..data.pipeline import load_images
 from ..io import imread_gray_u8
 from ..ops.filters import NAMED_FILTERS, filter_residuals, taps_to_kernel2d
 from ..utils.aggregates import iqr_interval, quantile
+from ..utils.figures import plotting
 from ..utils.seeding import filename_to_image_seed
+from ..utils.table import Table, from_rows
 from ..ws.unet_eval import get_unet_estimator
 from .correlation import unet_runs
 
@@ -118,12 +122,12 @@ def box_stats(results: "collections.OrderedDict[str, np.ndarray]",
     return sorted(rows, key=lambda r: (r["edge_interval"], r["Type"]))
 
 
-def bucket_quantiles(results, anchor: str):
-    """``box_stats`` as the frame of ``ae_boxes_3.csv``."""
-    import pandas as pd
-
-    return pd.DataFrame(box_stats(results, anchor),
-                        columns=["Type", "edge_interval", *STATS])
+def bucket_quantiles(results, anchor: str) -> Table:
+    """``box_stats`` as the table of ``ae_boxes_3.csv``."""
+    rows = box_stats(results, anchor)
+    if not rows:
+        return Table({k: [] for k in ("Type", "edge_interval", *STATS)})
+    return from_rows(rows)
 
 
 def run_error_boxes(
@@ -138,8 +142,8 @@ def run_error_boxes(
     batch_size: int = 8,
     fast_conv=False,
     device=None,
-):
-    """The analysis over a split: the ``ae_boxes_3.csv`` frame, written
+) -> Table:
+    """The analysis over a split: the ``ae_boxes_3.csv`` table, written
     with its figure (``outfile`` with ``.png``) when ``outfile`` is given.
     A U-Net method without a run is skipped."""
     from ..data.catalog import precovers
@@ -157,19 +161,20 @@ def run_error_boxes(
     if outfile is not None:
         outfile = pathlib.Path(outfile)
         outfile.parent.mkdir(parents=True, exist_ok=True)
-        out.to_csv(outfile, index=False)
+        out.to_csv(outfile)
         _plot(results, outfile.with_suffix(".png"))
     return out
 
 
 def _plot(results, outfile):
     """The square-root-scaled boxplot of the buckets, as the JAX package
-    draws it."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    import pandas as pd
-    import seaborn as sns
+    draws it, where matplotlib and seaborn (with pandas) are installed;
+    without them, one line on stderr says the figure was not drawn."""
+    mods = plotting("error-boxes", outfile, "matplotlib.pyplot", "pandas",
+                    "seaborn")
+    if mods is None:
+        return
+    matplotlib, plt, pd, sns = mods
 
     frames = []
     order = np.argsort(results["KB"])

@@ -14,8 +14,11 @@
 - ``sobel_locations``: the interesting-point finder (Sobel gradients
   through ``ops.filter_predict`` on the device, then ratio maxima and
   box-filtered gradient-magnitude extrema).
-- ``render_dots`` and ``plot_saliency_grid``: the figures (PIL,
-  matplotlib), on the host.
+- ``render_dots``: the image with the points as red pixels, an RGB PNG
+  written by ``io.png.write_png`` (the pixels of the JAX package's PIL
+  file; the bytes are the port's own encoder's).
+- ``plot_saliency_grid``: the patches, then their figure where matplotlib
+  is installed (otherwise one line on stderr says it was not drawn).
 """
 
 import pathlib
@@ -26,8 +29,10 @@ import torch
 
 from .._device import resolve_device
 from ..io import imread_gray_u8
+from ..io.png import write_png
 from ..ops.filters import filter_predict
 from ..utils.errors import UserError
+from ..utils.figures import plotting
 from ..utils.registry import get_model_name
 from ..ws.unet_eval import load_pretrained_unet
 
@@ -66,8 +71,6 @@ def render_dots(fname, outfile: pathlib.Path,
     points as single red pixels.  As in the JAX package, the valid-grid
     indices are applied to the full image without the +1 border offset,
     so the figure matches its pixels."""
-    from PIL import Image
-
     x = reader(fname)
     y = np.repeat(x[..., None] if x.ndim == 2 else x, 3, axis=-1)
     for loc in sobel_locations(fname, reader=reader,
@@ -75,7 +78,7 @@ def render_dots(fname, outfile: pathlib.Path,
         y[loc[:2]] = [255, 0, 0]
     outfile = pathlib.Path(outfile)
     outfile.parent.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(y).save(outfile)
+    write_png(outfile, y)
     return outfile
 
 
@@ -149,19 +152,21 @@ def plot_saliency_grid(
     fast_conv=False,
     reader: typing.Callable = imread_gray_u8,
     device=None,
-) -> pathlib.Path:
-    """2x2 coolwarm grid of the patches at four points.  The JAX package
-    reloads the run for each point; here it is loaded once, with the same
-    numbers."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+) -> typing.Optional[pathlib.Path]:
+    """2x2 coolwarm grid of the patches at four points, saved to
+    ``outfile`` (returned).  The JAX package reloads the run for each
+    point; here it is loaded once, with the same numbers.  The patches
+    are computed in any case; without matplotlib, one line on stderr says
+    the figure was not drawn, and the result is None."""
     if vlim is None:
         vlim = 1.0 if stego_method == "dropout" else 0.5
     patches = saliency_patches(fname, points, model_dir, stego_method,
                                fast_conv=fast_conv, reader=reader,
                                device=device)
+    mods = plotting("saliency", outfile, "matplotlib.pyplot")
+    if mods is None:
+        return None
+    _, plt = mods
     fig, ax = plt.subplots(2, 2)
     im = None
     for idx, sal in enumerate(patches):

@@ -42,14 +42,15 @@ U-Net's 3x3 convs through kernel B1 instead of cuDNN.  ``ws-eval --models
 OLS`` fits the OLS predictor on the covers, in the colour layouts for two
 or three ``--channels``.  ``simulate --method LSBr`` draws from torch
 generators seeded per image as the JAX CLI seeds its keys, so its stego
-pixels are not the JAX CLI's (HILLr's are).  The detection path
-(``simulate``, ``ws-eval``, ``unet-eval``, ``detector-eval``,
-``filters-eval``, ``roc`` and ``serve``) needs only torch, numpy, the
-standard library and g++: it reads and writes PNGs with ``io.png`` and
-its CSVs are ``utils.table`` tables; ``roc`` writes its tables first and
-draws ``roc_<alpha>.png`` only where matplotlib imports (else one line on
-stderr).  The other commands import pandas, PIL, matplotlib and seaborn
-where they need them.  The sweeps (``ws-eval``,
+pixels are not the JAX CLI's (HILLr's are).  Every command needs only
+torch, numpy, scipy (``correlation``'s p-values), the standard library and
+g++: PNGs are read and written with ``io.png`` and the CSVs are
+``utils.table`` tables.  ``roc``, ``error-boxes``, ``contour`` and
+``saliency`` write their tables (and the dots image) first and draw their
+figures only where matplotlib (with seaborn and pandas for the error
+boxes) imports, else one line on stderr names each figure not drawn
+(``utils.figures``); ``init-dataset`` sizes a PNG from its IHDR and any
+other image format through PIL, where PIL imports.  The sweeps (``ws-eval``,
 ``unet-eval``, ``detector-eval``, ``roc``) and the trainers use every
 rank they are started with (``parallel.distributed.distributed_init``:
 ``torchrun --nproc-per-node N -m wsunet_tpu_torch ...``; without
@@ -377,16 +378,18 @@ def _run(args):
                 fname, model_name="KB" if model == "KB" else "UNet",
                 model_dir=args.model_dir, fast_conv=args.fast_conv,
                 device=args.device)
-            print("saved", plot_contour(fname, d, model, outdir))
+            saved = plot_contour(fname, d, model, outdir)
+            if saved is not None:
+                print("saved", saved)
     elif cmd == "saliency":
         from .analyses.saliency import plot_saliency_grid, render_dots
         out = (args.results / "prediction" /
                f"saliency_{args.stego_method}.png")
-        plot_saliency_grid(args.data / args.image, args.model_dir,
-                           args.stego_method,
-                           [tuple(p) for p in args.points], out,
-                           fast_conv=args.fast_conv, device=args.device)
-        print(f"output saved to {out}")
+        if plot_saliency_grid(args.data / args.image, args.model_dir,
+                              args.stego_method,
+                              [tuple(p) for p in args.points], out,
+                              fast_conv=args.fast_conv, device=args.device):
+            print(f"output saved to {out}")
         dots = render_dots(args.data / args.image,
                            args.results / "prediction" /
                            "saliency_image_dots.png", device=args.device)
@@ -543,7 +546,7 @@ def _b0_frames(args) -> list:
 
 def _cmd_roc(args):
     from .detect import produce_roc
-    from .detect.roc import roc_curves
+    from .detect.roc import AUC_COLUMNS, roc_curves
     from .utils.registry import get_model_name
     from .utils.table import concat, fillna
     from .ws import ws_run
@@ -596,9 +599,7 @@ def _cmd_roc(args):
     alpha = args.alphas[-1]
     outdir = args.results / "detection"
     outdir.mkdir(parents=True, exist_ok=True)
-    df_auc = df_roc[["stego_method", "model_name", "auc", "p_e", "wauc",
-                     "pmd_5fp", "tau0", "fpr_tau0", "tpr_tau0", "fpr_50",
-                     "tpr_50"]].drop_duplicates()
+    df_auc = df_roc[AUC_COLUMNS].drop_duplicates()
     df_auc.to_csv(outdir / f"auc_{alpha}.csv")
     roc_curves(df_roc).to_csv(outdir / f"roc_{alpha}.csv")
     _plot_roc(df_roc, outdir / f"roc_{alpha}.png")
@@ -610,14 +611,12 @@ def _plot_roc(df_roc, out):
     """The curves of every detector in one figure, where matplotlib is
     installed; without it, one line on stderr says the figure was not
     drawn (the tables are written before)."""
-    try:
-        import matplotlib
-    except ImportError:
-        print(f"roc: matplotlib is not installed; {out.name} not drawn",
-              file=sys.stderr)
+    from .utils.figures import plotting
+
+    mods = plotting("roc", out, "matplotlib.pyplot")
+    if mods is None:
         return
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    _, plt = mods
     fig, ax = plt.subplots()
     for (label,), df_i in df_roc.groups("label"):
         df_i = df_i.sort("tau")

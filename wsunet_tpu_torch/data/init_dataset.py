@@ -7,16 +7,21 @@
       split_tr.csv / split_va.csv / split_te.csv
 
 Splits are deterministic by the hash of the file stem (the per-image
-seed), so re-running never reshuffles membership.  Host only: PIL reads
-the image sizes and pandas writes the CSVs, both imported inside the
-function; the files equal the JAX package's byte for byte.
+seed), so re-running never reshuffles membership.  Sizes come from
+``io.image_size``: a PNG's from its IHDR chunk (any bit depth, interlaced
+or not, as PIL reads it); the other extensions of ``IMAGE_EXTS`` through
+PIL where it is installed, and otherwise a ``UserError`` naming the file.
+The CSVs are ``utils.table`` tables, and the files equal the JAX
+package's byte for byte.
 """
 
 import pathlib
 
 import numpy as np
 
+from ..io import image_size
 from ..utils.seeding import filename_to_image_seed
+from ..utils.table import Table, concat, from_rows, read_csv
 
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".pgm", ".tif", ".tiff"}
 
@@ -25,27 +30,25 @@ def init_dataset(
     data_root: pathlib.Path,
     images_dir: str = "images",
     split_fractions=(0.6, 0.2, 0.2),
-):
+) -> Table:
     """Write files.csv for ``data_root/images_dir`` and the split CSVs;
-    return the catalog frame.  The rows of ``stego*`` subdirectories with
-    their own files.csv join the splits of their covers' stems."""
-    import pandas as pd
-    from PIL import Image
-
+    return the catalog table.  The rows of ``stego*`` subdirectories with
+    their own files.csv join the splits of their covers' stems (as
+    ``pandas.concat`` joins them: a column the covers lack is empty in
+    their rows, and an integer column a stego table lacks turns float)."""
     data_root = pathlib.Path(data_root)
     img_dir = data_root / images_dir
     rows = []
     for p in sorted(img_dir.iterdir()):
         if p.suffix.lower() not in IMAGE_EXTS:
             continue
-        with Image.open(p) as im:
-            w, h = im.size
+        w, h = image_size(p)
         rows.append({"name": f"{images_dir}/{p.name}",
                      "height": h, "width": w})
     if not rows:
         raise FileNotFoundError(f"no images under {img_dir}")
-    df = pd.DataFrame(rows)
-    df.to_csv(img_dir / "files.csv", index=False)
+    df = from_rows(rows)
+    df.to_csv(img_dir / "files.csv")
 
     # deterministic split by stem hash
     tr_f, va_f, _ = split_fractions
@@ -53,18 +56,17 @@ def init_dataset(
         (filename_to_image_seed(n) % 10 ** 6) / 10 ** 6 for n in df["name"]])
     split = np.where(u < tr_f, "tr", np.where(u < tr_f + va_f, "va", "te"))
 
-    stego_frames = []
+    stego_tables = []
     for sdir in sorted(data_root.glob("stego*")):
         fcsv = sdir / "files.csv"
         if fcsv.exists():
-            stego_frames.append(pd.read_csv(fcsv))
+            stego_tables.append(read_csv(fcsv))
     for which in ["tr", "va", "te"]:
         names = set(df["name"][split == which])
         stems = {pathlib.Path(n).stem for n in names}
-        parts = [df[df["name"].isin(names)]]
-        for sf in stego_frames:
-            parts.append(sf[sf["name"].apply(
-                lambda n: pathlib.Path(n).stem in stems)])
-        out = pd.concat(parts).reset_index(drop=True)
-        out.to_csv(data_root / f"split_{which}.csv", index=False)
+        parts = [df[np.isin(df["name"], list(names))]]
+        for sf in stego_tables:
+            parts.append(sf[np.array([pathlib.Path(n).stem in stems
+                                      for n in sf["name"]], bool)])
+        concat(parts).to_csv(data_root / f"split_{which}.csv")
     return df

@@ -1,7 +1,7 @@
 """Bootstrap confidence intervals for the detection tables (port of
 ``wsunet_tpu/detect/ci.py``, numpy only; the same ``SEED`` and the same
 arithmetic in the same order, so the same input gives the same output,
-bit for bit).
+bit for bit, and the table (``utils.table``) writes pandas' bytes).
 
 The fixture protocol scores a handful of covers per fold (the holdout
 table pools 5 covers x 3 alphas per method), so a point AUC of 1.000 or
@@ -23,6 +23,7 @@ over resamples via per-image multinomial counts, so 10k resamples of a
 
 import numpy as np
 
+from ..utils.table import Table, from_rows
 from .roc import TAUS, iter_detector_groups, scores_and_labels
 
 N_BOOT = 10_000
@@ -91,12 +92,10 @@ def bootstrap_auc_pe(y_hat: np.ndarray, y: np.ndarray,
 
 
 def bootstrap_roc_cis(df_ws, n_boot: int = N_BOOT, seed: int = SEED,
-                      level: float = 0.95):
-    """Per-(stego_method, model_name) CI table (a DataFrame) for a sweep
-    result frame (the same grouping and score conventions as
+                      level: float = 0.95) -> Table:
+    """Per-(stego_method, model_name) CI table for a sweep's rows (a table
+    or a DataFrame; the same grouping and score conventions as
     produce_roc)."""
-    import pandas as pd
-
     out = []
     for stego_method, model_name, df_i in iter_detector_groups(df_ws):
         y_hat, y = scores_and_labels(df_i, model_name)
@@ -104,4 +103,4 @@ def bootstrap_roc_cis(df_ws, n_boot: int = N_BOOT, seed: int = SEED,
         row.update(bootstrap_auc_pe(y_hat, y, n_boot=n_boot, seed=seed,
                                     level=level))
         out.append(row)
-    return pd.DataFrame(out)
+    return from_rows(out)

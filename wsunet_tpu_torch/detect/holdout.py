@@ -1,6 +1,7 @@
 """Leak-free cross-fold pooled detection evaluation (port of
-``wsunet_tpu/detect/holdout.py``; pandas is imported inside the
-functions, and both take ``device``, None = CUDA).
+``wsunet_tpu/detect/holdout.py``, on ``utils.table`` tables: no pandas;
+both functions take ``device``, None = CUDA, and every file they write
+holds pandas' bytes for the JAX package's frames).
 
 The reference's golden detection numbers come from models trained on a
 disjoint corpus (BOSS) and evaluated on the bundled fixture (the
@@ -30,6 +31,10 @@ cover-disjointness of every pooled score can be audited.
 import dataclasses
 import pathlib
 import typing
+
+import numpy as np
+
+from ..utils.table import Table, concat, fillna, isna
 
 
 @dataclasses.dataclass
@@ -61,15 +66,13 @@ def holdout_frames(
     alphas: typing.Sequence[float] = (0.1, 0.05, 0.01),
     batch_size: int = 8,
     device=None,
-):
-    """Per-image detector scores (a DataFrame) with fold provenance.
+) -> Table:
+    """Per-image detector scores with fold provenance.
 
     Columns follow the roc-sweep contract (model_name, stego_method,
     alpha, score/beta_hat) plus ``fold`` (the eval split each row came
     from; weight-free filters carry fold="all").
     """
-    import pandas as pd
-
     from ..ws import ws_run
 
     frames = []
@@ -83,7 +86,7 @@ def holdout_frames(
                     model_name=model_name, model_path=model_path,
                     model_label=label, weighted=0, batch_size=batch_size,
                     split=split, ols_fit_split=ols_fit_split,
-                    device=device).to_pandas()
+                    device=device)
                 res["fold"] = fold_tag
                 frames.append(res)
 
@@ -117,17 +120,17 @@ def holdout_frames(
                 model_name=spec["model_name"],
                 lsbr_reference=spec.get("lsbr_reference", False),
                 batch_size=batch_size, split=fold.eval_split,
-                device=device).to_pandas()
-            res = res[(res["stego_method"].isna()) |
-                      (res["alpha"].isin(alphas))].copy()
+                device=device)
+            res = res[isna(res["stego_method"]) |
+                      np.isin(res["alpha"], list(alphas))]
             res["model_name"] = label
             res["score"] = res["output"]
             res["fold"] = tag
             frames.append(res)
 
-    res = pd.concat(frames).reset_index(drop=True)
-    res["stego_method"] = res["stego_method"].fillna("Cover")
-    res["alpha"] = res["alpha"].fillna(0.0)
+    res = concat(frames)
+    res["stego_method"] = fillna(res["stego_method"], "Cover")
+    res["alpha"] = fillna(res["alpha"], 0.0)
     return res
 
 
@@ -137,53 +140,41 @@ def holdout_roc(
     results_dir: pathlib.Path = None,
     suffix: str = "holdout",
     **kw,
-):
-    """Pooled held-out ROC/AUC table (a DataFrame); optionally writes the
+) -> Table:
+    """Pooled held-out ROC/AUC table; optionally writes the
     ``auc_<alpha>_<suffix>.csv`` / ``roc_<alpha>_<suffix>.csv`` artifacts
     plus the per-image ``scores_<suffix>.csv`` audit frame.  ``kw`` goes
     to ``holdout_frames``."""
-    import pandas as pd
-
-    from .roc import produce_roc
+    from .roc import AUC_COLUMNS, produce_roc, roc_curves
 
     scores = holdout_frames(data_path, folds, **kw)
-    df_roc = produce_roc(scores).to_pandas()
-    df_auc = df_roc[["stego_method", "model_name", "auc", "p_e", "wauc",
-                     "pmd_5fp", "tau0", "fpr_tau0", "tpr_tau0", "fpr_50",
-                     "tpr_50"]].drop_duplicates()
+    df_roc = produce_roc(scores)
+    df_auc = df_roc[AUC_COLUMNS].drop_duplicates()
     if results_dir is not None:
         alpha = min(kw.get("alphas", (0.1, 0.05, 0.01)))
         outdir = pathlib.Path(results_dir) / "detection"
         outdir.mkdir(parents=True, exist_ok=True)
-        df_auc.to_csv(outdir / f"auc_{alpha}_{suffix}.csv", index=False)
+        df_auc.to_csv(outdir / f"auc_{alpha}_{suffix}.csv")
         # bootstrap uncertainty for the published point estimates (the
         # table is small-n by design; detect/ci.py quantifies it)
         from .ci import bootstrap_roc_cis
         bootstrap_roc_cis(scores).to_csv(
-            outdir / f"auc_{alpha}_{suffix}_ci.csv", index=False)
-        pivot = df_roc.pivot(index=["tau"],
-                             columns=["stego_method", "model_name"],
-                             values=["tpr", "fpr"])
-        pivot.columns = ["_".join(c).strip() for c in pivot.columns.values]
-        pivot.to_csv(outdir / f"roc_{alpha}_{suffix}.csv", index=False)
+            outdir / f"auc_{alpha}_{suffix}_ci.csv")
+        roc_curves(df_roc).to_csv(outdir / f"roc_{alpha}_{suffix}.csv")
         # per-alpha breakout: the pooled table mixes easy and hard change
         # rates (golden-artifact semantics); this sidecar shows each
         # detector's AUC/P_E per single alpha so claims about the hardest
         # cell (alpha=0.01 alone) are auditable from a committed artifact
         by_alpha = []
         for a in sorted(kw.get("alphas", (0.1, 0.05, 0.01))):
-            sub = scores[(scores["alpha"] == 0.0) |
-                         (scores["alpha"] == a)].copy()
-            t = produce_roc(sub).to_pandas()[
-                ["stego_method", "model_name", "auc", "p_e"]
-            ].drop_duplicates()
+            sub = scores[(scores["alpha"] == 0.0) | (scores["alpha"] == a)]
+            t = produce_roc(sub)[["stego_method", "model_name", "auc",
+                                  "p_e"]].drop_duplicates()
             t.insert(0, "alpha", a)
             by_alpha.append(t)
-        pd.concat(by_alpha, ignore_index=True).to_csv(
-            outdir / f"auc_by_alpha_{suffix}.csv", index=False)
+        concat(by_alpha).to_csv(outdir / f"auc_by_alpha_{suffix}.csv")
         audit_cols = [c for c in ("name", "fold", "model_name",
                                   "stego_method", "alpha", "beta_hat",
                                   "score") if c in scores.columns]
-        scores[audit_cols].to_csv(
-            outdir / f"scores_{suffix}.csv", index=False)
+        scores[audit_cols].to_csv(outdir / f"scores_{suffix}.csv")
     return df_auc

@@ -17,6 +17,9 @@ from ..utils.table import Table, as_table, concat
 from .metrics import PMD5FPMeter, roc_auc_score, wAUCMeter
 
 TAUS = np.linspace(0, 1, 501, endpoint=True)[::-1]
+# the columns of the AUC tables (``auc_<alpha>.csv``): one row a detector
+AUC_COLUMNS = ["stego_method", "model_name", "auc", "p_e", "wauc", "pmd_5fp",
+               "tau0", "fpr_tau0", "tpr_tau0", "fpr_50", "tpr_50"]
 
 
 def iter_detector_groups(df_ws):

@@ -1,5 +1,8 @@
 """Image readers (port of ``wsunet_tpu/io/imread.py``), on the port's
-own PNG decoder (``io.png``): no PIL or OpenCV.
+own PNG decoder (``io.png``): no PIL or OpenCV.  ``image_size`` reads a
+PNG's size from its IHDR chunk (any bit depth, interlaced or not), and
+opens any other format with PIL where PIL is installed; otherwise it
+raises ``UserError`` naming the file.
 
 Each returns what the JAX package's reader returns for the same file:
 ``imread_u8`` PIL's array (palette indices for a palette image) with a
@@ -11,9 +14,13 @@ luminance of its first three planes (for grayscale PNGs all four planes
 are equal).
 """
 
+import pathlib
+import typing
+
 import numpy as np
 
-from .png import read, read_png
+from ..utils.errors import UserError
+from .png import png_size, read, read_png
 
 
 def _luma(r, g, b) -> np.ndarray:
@@ -53,3 +60,18 @@ def imread_gray_u8(fname) -> np.ndarray:
     if x.ndim == 2:
         return x
     return _luma(x[..., 0], x[..., 1], x[..., 2])
+
+
+def image_size(path) -> typing.Tuple[int, int]:
+    """(width, height) of an image file, as PIL's ``Image.open(path).size``
+    gives it: a PNG's from its IHDR, any other format's through PIL."""
+    path = pathlib.Path(path)
+    if path.suffix.lower() == ".png":
+        return png_size(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise UserError(f"{path}: only PNG sizes are read without PIL, "
+                        f"which is not installed") from None
+    with Image.open(path) as im:
+        return im.size

@@ -12,7 +12,10 @@ colour types 0 (gray), 2 (RGB), 3 (palette), 4 (gray + alpha) and 6
 ``PngImage.rgb()`` the colour planes OpenCV reads (the palette looked
 up, gray repeated, alpha dropped).  Another bit depth or an interlaced
 file raises ``UserError`` naming the file and its IHDR; a bad CRC, a
-truncated file or a broken stream raises ``PngError``.
+truncated file or a broken stream raises ``PngError``.  ``png_size``
+reads only the signature and the IHDR chunk, so it gives the size of any
+valid PNG, 16-bit and interlaced ones too, as PIL's ``Image.open(path)
+.size`` does.
 
 ``write_png(path, u8)`` chooses each row's filter by the least sum of
 absolute differences (bytes read as signed), as libpng's heuristic does,
@@ -277,6 +280,21 @@ def read(path) -> PngImage:
     pixels = pixels.reshape(h, w) if bpp == 1 else pixels.reshape(h, w, bpp)
     return PngImage(pixels=pixels, color_type=ctype,
                     palette=palette if ctype == 3 else None)
+
+
+def png_size(path) -> typing.Tuple[int, int]:
+    """(width, height) of the PNG file ``path`` from its IHDR chunk alone
+    (its CRC checked), whatever its bit depth, colour type or
+    interlacing."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    kind, ihdr = next(_chunks(head, path))
+    if kind != b"IHDR" or len(ihdr) != 13:
+        raise PngError(f"{path}: the first chunk is not IHDR")
+    w, h = struct.unpack(">II", ihdr[:8])
+    if w == 0 or h == 0:
+        raise PngError(f"{path}: bad IHDR ({w}x{h})")
+    return w, h
 
 
 def read_png(path) -> np.ndarray:

@@ -23,12 +23,18 @@ rows show them:
   ties); ``shuffle(seed)`` is ``DataFrame.sample(frac=1.0,
   random_state=seed)``, the permutation of ``np.random.RandomState(seed)``;
 - ``groups`` iterates the sorted distinct keys of some columns, NaN keys
-  left out, as ``groupby`` does; ``drop_duplicates`` keeps first rows.
+  left out, as ``groupby`` does, and ``medians`` takes each group's
+  median skipping NaN (``groupby(...).median()``); ``drop_duplicates``
+  keeps first rows; ``insert`` puts a column at a position
+  (``DataFrame.insert``);
+- ``read_csv`` names an empty header cell ``Unnamed: <j>`` (``j`` its
+  position), as pandas does, so a file written with an unnamed index
+  column reads and writes back the same bytes.
 
 A table has no index: rows are positions.  ``table[name]`` is a column,
 ``table[rows]`` (a slice, a bool mask or positions) a table of those
-rows.  ``to_pandas`` (pandas imported inside) is for callers that still
-work on DataFrames.
+rows.  The package imports no pandas; the tests convert a table to a
+DataFrame themselves (``tests/torch_p128.frame``).
 """
 
 import csv
@@ -189,6 +195,36 @@ class Table:
         for key in sorted(found):
             yield key, self[np.asarray(found[key], dtype=np.int64)]
 
+    def medians(self, by: str, columns) -> "Table":
+        """One row a distinct key of ``by`` (sorted, NaN keys left out):
+        the key and the median of each of ``columns`` over the group,
+        NaN skipped (``groupby(by)[columns].median()`` with its index as
+        a column)."""
+        keys, meds = [], {c: [] for c in columns}
+        for (key,), rows in self.groups(by):
+            keys.append(key)
+            for c in columns:
+                v = np.asarray(rows[c], np.float64)
+                v = v[~np.isnan(v)]
+                meds[c].append(np.median(v) if len(v) else np.nan)
+        out = Table({by: _column(keys)}, n=len(keys))
+        for c in columns:
+            out[c] = np.asarray(meds[c], np.float64)
+        return out
+
+    def insert(self, pos: int, name: str, values) -> None:
+        """Put the column ``name`` at position ``pos`` (a scalar is
+        broadcast), as ``DataFrame.insert`` does."""
+        if name in self._cols:
+            raise ValueError(f"column {name!r} already exists")
+        col = _column(values, self._n)
+        if len(col) != self._n:
+            raise ValueError(f"column {name!r} has {len(col)} rows, the "
+                             f"table {self._n}")
+        items = list(self._cols.items())
+        items.insert(pos, (name, col))
+        self._cols = dict(items)
+
     def drop_duplicates(self) -> "Table":
         """The first row of each distinct row (NaN equal to NaN)."""
         seen, keep = set(), []
@@ -224,21 +260,6 @@ class Table:
         return "\n".join("  ".join(c[i].rjust(w)
                                    for c, w in zip(cells, widths))
                          for i in range(self._n + 1))
-
-    def to_pandas(self):
-        """The same columns as a pandas DataFrame (a RangeIndex)."""
-        import pandas as pd
-
-        df = pd.DataFrame(dict(self._cols), index=pd.RangeIndex(self._n))
-        for name, col in self._cols.items():
-            # a text column (str or NaN in every row, also where none is
-            # str) as pandas' text dtype, as read_csv and its row
-            # selections give it; None stays an object, as in pandas
-            if col.dtype == object and all(
-                    isinstance(x, str) or (isinstance(x, float) and
-                                           math.isnan(x)) for x in col):
-                df[name] = df[name].astype("str")
-        return df
 
 
 def from_rows(rows: typing.Sequence[dict]) -> Table:
@@ -435,6 +456,7 @@ def read_csv(path, dtype: typing.Mapping = None) -> Table:
     header, body = lines[0], [r for r in lines[1:] if r]
     table = Table(n=len(body))
     for j, name in enumerate(header):
+        name = name or f"Unnamed: {j}"
         cells = [r[j] if j < len(r) else "" for r in body]
         table[name] = _infer(cells, (dtype or {}).get(name) is str)
     return table
