@@ -829,3 +829,39 @@ def test_bench_ws_fused_parity_on_card(cuda):
     assert out["window_ms"] == pytest.approx(10 * out["ms_per_call"])
     # 6 parity calls, 3 warm-up calls and the 10 captured in the graph
     assert fused_ws.launches == 19
+
+
+def _event_ns(event, what):
+    fn = getattr(event, f"{what}_ns", None)
+    return int(fn()) if fn is not None else int(getattr(
+        event, f"{what}_us")() * 1000)
+
+
+@pytest.mark.cuda
+def test_program_span_holds_its_kernels_on_the_device_clock(cuda):
+    """A program span (``utils.profiling``) around a launched kernel and
+    its ``synchronize()`` holds the kernel's interval in the profiler's
+    device events: the recorder's ``time.time_ns()`` stamps share the
+    clock of the trace's device timeline."""
+    from wsunet_tpu_torch.utils import profiling
+
+    x = torch.randn(2048, 2048, device=cuda)
+    (x @ x).sum().item()
+    profiling.clear()
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with profiling.span("matmul"):
+                x @ x
+                torch.cuda.synchronize(cuda)
+        span, = profiling.recorded()["spans"]
+    finally:
+        profiling.clear()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert kernels
+    for k in kernels:
+        start = _event_ns(k, "start")
+        assert span["start_ns"] <= start
+        assert start + _event_ns(k, "duration") <= span["end_ns"]

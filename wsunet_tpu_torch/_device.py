@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .utils.errors import UserError
+from .utils.profiling import span
 
 
 def disable_tf32() -> None:
@@ -42,7 +43,9 @@ class PinnedUpload:
     for requests.  A buffer is refilled only after the event recorded
     behind its last copy has passed, so a batch is never overwritten while
     it is still being copied; a buffer grows when a batch does not fit.
-    Not thread-safe: one thread uploads (the one that launches the work)."""
+    Not thread-safe: one thread uploads (the one that launches the work).
+    A call, the wait on its buffer's event included, is the span
+    ``pipeline.upload`` (``utils.profiling``)."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -50,22 +53,23 @@ class PinnedUpload:
         self.turn = 0
 
     def __call__(self, batch: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(np.ascontiguousarray(batch))
-        slot = self.slots[self.turn]
-        if slot is not None:
-            slot[1].synchronize()
-        if slot is None or slot[0].dtype != src.dtype or \
-                slot[0].numel() < src.numel():
-            slot = (torch.empty(src.numel(), dtype=src.dtype,
-                                pin_memory=True), None)
-        host = slot[0][:src.numel()].view(src.shape)
-        host.copy_(src)   # torch's copy, several threads; numpy's is one
-        x = host.to(self.dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.dev))
-        self.slots[self.turn] = (slot[0], event)
-        self.turn ^= 1
-        return x
+        with span("pipeline.upload"):
+            src = torch.from_numpy(np.ascontiguousarray(batch))
+            slot = self.slots[self.turn]
+            if slot is not None:
+                slot[1].synchronize()
+            if slot is None or slot[0].dtype != src.dtype or \
+                    slot[0].numel() < src.numel():
+                slot = (torch.empty(src.numel(), dtype=src.dtype,
+                                    pin_memory=True), None)
+            host = slot[0][:src.numel()].view(src.shape)
+            host.copy_(src)   # torch's copy, several threads; numpy's is one
+            x = host.to(self.dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.dev))
+            self.slots[self.turn] = (slot[0], event)
+            self.turn ^= 1
+            return x
 
 
 # device -> its PinnedUpload, kept so that no call allocates pinned memory

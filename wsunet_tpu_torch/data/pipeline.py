@@ -29,6 +29,17 @@ Every batch yields fresh numpy pixels (``np.stack`` copies out of the
 decode cache), so a batch handed out is never overwritten by a later one.
 Device uploads (the device cache's) happen in the consuming thread, through
 the device's two pinned buffers (``_device.to_device``).
+
+While the consuming thread records (``utils.profiling``: under a torch
+profiler), the pipeline records its spans: ``sweep`` (a sweep's pass),
+``pipeline.wait`` (the consumer waiting for the next batch),
+``sweep.collect`` (a sweep's outputs read back into rows),
+``pipeline.batch`` (one batch made on the prefetch thread) and
+``pipeline.read`` (one reader call on a decode thread); and its counters:
+``pipeline.device_cache.hit`` / ``.miss`` (a batch looked up),
+``pipeline.device_cache.over_budget`` (a batch left out of a full device
+cache), ``pipeline.decode_cache.hit`` / ``.miss`` (an image looked up)
+and ``pipeline.decode_failed`` (an image that did not decode).
 """
 
 import concurrent.futures as _futures
@@ -43,6 +54,7 @@ import numpy as np
 from .._device import resolve_device, to_device
 from ..io.imread import imread_gray_u8
 from ..utils.errors import UserError
+from ..utils.profiling import carry, count, span
 from .catalog import resolve_path
 
 
@@ -135,6 +147,8 @@ def _decode_many(paths, reader, threads: int,
         with _DECODE_CACHE_LOCK:
             missing = [p for p, k in zip(paths, keys)
                        if k not in _DECODE_CACHE]
+        count("pipeline.decode_cache.hit", len(paths) - len(missing))
+        count("pipeline.decode_cache.miss", len(missing))
         if missing:
             decoded = _decode_many(missing, reader, threads, cache=False)
             lookup = {(str(p), reader.__name__): d
@@ -154,17 +168,18 @@ def _decode_many(paths, reader, threads: int,
         return _decode_native(paths, reader, threads)
 
     def safe(p):
-        try:
-            return reader(p)
-        except UserError:
-            raise
-        except Exception:
-            return None
+        with span("pipeline.read"):
+            try:
+                return reader(p)
+            except UserError:
+                raise
+            except Exception:
+                return None
 
     if threads <= 1 or len(paths) <= 1:
         return [safe(p) for p in paths]
     with _futures.ThreadPoolExecutor(max_workers=threads) as pool:
-        return list(pool.map(safe, paths))
+        return list(pool.map(carry(safe), paths))
 
 
 def load_images(root: pathlib.Path, names: typing.Sequence[str],
@@ -213,34 +228,40 @@ def iterate_batches(
 
     def make(start: int) -> Batch:
         chunk = names[start:start + batch_size]
-        if device_cache:
-            with _DECODE_CACHE_LOCK:
-                hit = _DEVICE_CACHE.get(dkey(chunk))
-            if hit is not None:
-                return Batch(pixels=hit[0], mask=hit[1].copy(), names=chunk)
-        paths = [resolve_path(root, nm) for nm in chunk]
-        decoded = _decode_many(paths, reader, threads, cache=cache)
-        mask = np.ones(batch_size, dtype=bool)
-        template = next((d for d in decoded if d is not None), None)
-        if template is None and allow_empty:
-            return Batch(pixels=None, mask=np.zeros(batch_size, dtype=bool),
-                         names=chunk)
-        if template is None:
-            raise FileNotFoundError(
-                f"no decodable image among {chunk[:3]}...")
-        imgs = []
-        for i, d in enumerate(decoded):
-            if d is None:
-                mask[i] = False
-                d = np.zeros_like(template)
-            imgs.append(d)
-        pixels = np.stack(imgs)
-        pad = batch_size - len(chunk)
-        if pad:
-            pixels = np.concatenate(
-                [pixels, np.repeat(pixels[:1], pad, axis=0)], axis=0)
-            mask[len(chunk):] = False
-        return Batch(pixels=pixels, mask=mask, names=chunk)
+        with span("pipeline.batch"):
+            if device_cache:
+                with _DECODE_CACHE_LOCK:
+                    hit = _DEVICE_CACHE.get(dkey(chunk))
+                if hit is not None:
+                    count("pipeline.device_cache.hit")
+                    return Batch(pixels=hit[0], mask=hit[1].copy(),
+                                 names=chunk)
+                count("pipeline.device_cache.miss")
+            paths = [resolve_path(root, nm) for nm in chunk]
+            decoded = _decode_many(paths, reader, threads, cache=cache)
+            mask = np.ones(batch_size, dtype=bool)
+            template = next((d for d in decoded if d is not None), None)
+            if template is None and allow_empty:
+                return Batch(pixels=None,
+                             mask=np.zeros(batch_size, dtype=bool),
+                             names=chunk)
+            if template is None:
+                raise FileNotFoundError(
+                    f"no decodable image among {chunk[:3]}...")
+            imgs = []
+            for i, d in enumerate(decoded):
+                if d is None:
+                    count("pipeline.decode_failed")
+                    mask[i] = False
+                    d = np.zeros_like(template)
+                imgs.append(d)
+            pixels = np.stack(imgs)
+            pad = batch_size - len(chunk)
+            if pad:
+                pixels = np.concatenate(
+                    [pixels, np.repeat(pixels[:1], pad, axis=0)], axis=0)
+                mask[len(chunk):] = False
+            return Batch(pixels=pixels, mask=mask, names=chunk)
 
     def to_cache(batch: Batch) -> Batch:
         """Upload a complete host batch (in this, the consuming thread)
@@ -253,21 +274,26 @@ def iterate_batches(
         x = to_device(batch.pixels, dev)
         key = dkey(batch.names)
         with _DECODE_CACHE_LOCK:
-            if key not in _DEVICE_CACHE and \
-                    _DEVICE_CACHE_BYTES + batch.pixels.nbytes \
-                    <= _DEVICE_CACHE_BUDGET:
+            cached = key in _DEVICE_CACHE
+            fits = _DEVICE_CACHE_BYTES + batch.pixels.nbytes \
+                <= _DEVICE_CACHE_BUDGET
+            if not cached and fits:
                 _DEVICE_CACHE[key] = (x, batch.mask.copy())
                 _DEVICE_CACHE_BYTES += batch.pixels.nbytes
+        if not (cached or fits):
+            count("pipeline.device_cache.over_budget")
         return Batch(pixels=x, mask=batch.mask, names=batch.names)
 
     starts = list(range(0, n, batch_size))
     with _futures.ThreadPoolExecutor(max_workers=max(1, prefetch)) as pool:
-        pending = [pool.submit(make, s) for s in starts[:1 + prefetch]]
+        pending = [pool.submit(carry(make), s)
+                   for s in starts[:1 + prefetch]]
         next_idx = len(pending)
         while pending:
-            batch = pending.pop(0).result()
+            with span("pipeline.wait"):
+                batch = pending.pop(0).result()
             if next_idx < len(starts):
-                pending.append(pool.submit(make, starts[next_idx]))
+                pending.append(pool.submit(carry(make), starts[next_idx]))
                 next_idx += 1
             yield to_cache(batch) if device_cache else batch
 
@@ -291,17 +317,20 @@ def sweep_batches(root: pathlib.Path, names: typing.Sequence[str],
     names = list(names)
     if not names:
         return np.zeros((0, 0))
-    local, n_true = host_shard(names)
-    outs = []
-    for batch in iterate_batches(root, local, batch_size,
-                                 reader=reader, threads=threads, prefetch=2,
-                                 cache=True, device_cache=device_cache,
-                                 device=device):
-        outs.append((step(batch.pixels), batch.mask[:len(batch.names)]))
-    rows = []
-    for vals, mask in outs:
-        v = np.stack([t.cpu().numpy()[:len(mask)] for t in vals], axis=1)
-        v = v.astype("float64")
-        v[~mask] = np.nan
-        rows.append(v)
-    return allgather_rows(np.concatenate(rows)[:n_true], len(names))
+    with span("sweep"):
+        local, n_true = host_shard(names)
+        outs = []
+        for batch in iterate_batches(root, local, batch_size, reader=reader,
+                                     threads=threads, prefetch=2, cache=True,
+                                     device_cache=device_cache,
+                                     device=device):
+            outs.append((step(batch.pixels), batch.mask[:len(batch.names)]))
+        rows = []
+        with span("sweep.collect"):
+            for vals, mask in outs:
+                v = np.stack([t.cpu().numpy()[:len(mask)] for t in vals],
+                             axis=1)
+                v = v.astype("float64")
+                v[~mask] = np.nan
+                rows.append(v)
+        return allgather_rows(np.concatenate(rows)[:n_true], len(names))

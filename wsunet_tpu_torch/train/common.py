@@ -13,6 +13,7 @@ import torch
 from .._device import to_device
 from ..data.pipeline import iterate_batches
 from ..utils import create_run_name
+from ..utils.profiling import span
 
 
 class MetricWriter:
@@ -130,12 +131,28 @@ def rank_batches(mesh, root, names: list, batch_size: int,
     padded by its first name, as ``iterate_batches`` pads by its first
     image, and a failed decode is zeros, as there, so the blocks of every
     rank make up the one-process batch (a block with no decodable image
-    too)."""
+    too).
+
+    Each batch, from asking the pipeline for it to its pixels and mask on
+    ``device``, is the span ``train.fetch`` (``utils.profiling``); the
+    mask's copy is its child ``train.mask``."""
+    batches = _rank_batches(mesh, root, names, batch_size, reader, device)
+    while True:
+        with span("train.fetch"):
+            out = next(batches, None)
+        if out is None:
+            return
+        yield out
+
+
+def _rank_batches(mesh, root, names, batch_size, reader, device):
     if mesh.group is None:
         for batch in iterate_batches(root, names, batch_size, reader=reader,
                                      cache=True):
-            yield batch.mask, to_device(batch.pixels, device), \
-                torch.as_tensor(batch.mask, device=device)
+            pixels = to_device(batch.pixels, device)
+            with span("train.mask"):
+                mask = torch.as_tensor(batch.mask, device=device)
+            yield batch.mask, pixels, mask
         return
     block = mesh.block(batch_size)
     local, real = [], []

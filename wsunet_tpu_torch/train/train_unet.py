@@ -61,6 +61,7 @@ from ..models import (flax_params_from_unet_state_dict, get_model, init_unet,
 from ..parallel import get_mesh, replicate, shard_batch
 from ..utils import setup_logger
 from ..utils.errors import UserError
+from ..utils.profiling import span
 from .checkpoint import (PARAMS_FILE, load_checkpoint, load_params,
                          save_checkpoint, save_config, save_params)
 from .common import (epoch_names, on_rank0, rank_batches, rank_writer,
@@ -188,7 +189,12 @@ def _make_step(model, loss_fn, optimizer, scheduler, stego_method, alpha,
     what the one-rank step returns: the global loss (its share summed over
     the ranks) and, from ``eval_step``, the global batch's outputs, inputs
     and alphas; ``train_step`` sums the gradients over the ranks before
-    its AdamW step."""
+    its AdamW step.
+
+    A ``train_step`` is the span ``train.step`` (``utils.profiling``), with
+    the children ``train.forward`` (draws, forward and loss),
+    ``train.backward`` (gradients, summed over the ranks) and
+    ``train.optimizer`` (AdamW's and the scheduler's steps)."""
     sampler = Sampler(model, loss_fn, stego_method, alpha, crop=crop,
                       augment=augment, cover_fraction=cover_fraction,
                       mesh=mesh)
@@ -202,17 +208,21 @@ def _make_step(model, loss_fn, optimizer, scheduler, stego_method, alpha,
                            sampler.draw(shape, generator))
 
     def train_step(cover_u8, mask, generator=None, draws=None):
-        d = local(cover_u8, generator, draws)
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss = sampler.loss(cover_u8, mask, d)[0]
-        loss.backward()
-        if mesh is not None:
-            mesh.sum_gradients(model)
-            loss = mesh.all_reduce(loss)
-        optimizer.step()
-        scheduler.step()
-        return loss.detach()
+        with span("train.step"):
+            with span("train.forward"):
+                d = local(cover_u8, generator, draws)
+                model.train()
+                optimizer.zero_grad(set_to_none=True)
+                loss = sampler.loss(cover_u8, mask, d)[0]
+            with span("train.backward"):
+                loss.backward()
+                if mesh is not None:
+                    mesh.sum_gradients(model)
+                    loss = mesh.all_reduce(loss)
+            with span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            return loss.detach()
 
     @torch.no_grad()
     def eval_step(cover_u8, mask, generator=None, draws=None):
