@@ -222,6 +222,16 @@ kernel against its plain PyTorch version:
    named on stderr, the dots image decoded against ``sobel_locations``;
    each command's process time.
 
+18. kernel B3 (the MBConv depthwise stage in one pass, CUDA C++) at each
+   of the 16 depthwise stages of B0 without stem stride at 512x512, B=32:
+   every launch held to its plain version, two calls and a CUDA-graph
+   replay bitwise equal; device ms by CUDA-graph replay beside its bound
+   (bytes over the card's bandwidth), the plain version's ms and the
+   library yardstick's (PyTorch's batch norm, SiLU, pad, conv_depthwise2d
+   and mean: the composition the model ran before B3, which the port
+   never calls as one).  ``python3 chip_smoke.py --b3`` builds the kernels
+   and runs phase 18 alone.
+
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits with code 2 and
@@ -316,11 +326,14 @@ def ptxas_lines(log: str) -> list:
              "I13__nv_bfloat16EE": "<bf16>", "IfEE": "<f32>"}
     names.update({f"ILi{f}ELi{w}EE": f"<{FILTERS[f]}, weighted={wt}>"
                   for f in range(4) for w, wt in enumerate(WEIGHTS)})
+    names.update({f"ILi{k}ELi{s}ELi{p}ELb{b}EE": f"<k={k}, s={s}, "
+                  f"padl={p}, prologue={b}>" for k in (3, 5) for s in (1, 2)
+                  for p in range(3) for b in (0, 1)})
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?"
                       r"(wgmma_kernel|direct_kernel|fma_kernel|ws_kernel|"
-                      r"recip_kernel)"
+                      r"recip_kernel|mbconv_dw_kernel)"
                       r"(I\w+?EE)?", line)
         if m:
             name = m.group(1) + names.get(m.group(2) or "", "")
@@ -761,10 +774,11 @@ def detection_path(smi_line: str) -> dict:
 def b0_macs(model, size: int) -> dict:
     """Multiply-accumulates of one B0 forward on a size x size image,
     counted from the layer shapes (forward hooks on every conv and the
-    classifier of a one-image forward), by kind: the stem, the 1x1
-    expand, project and head convs, the depthwise convs, squeeze-excite
-    and the classifier."""
-    from wsunet_tpu_torch.models.b0 import _SqueezeExcite
+    classifier of a one-image forward on the modules' composition: B3
+    calls no depthwise conv module), by kind: the stem, the 1x1 expand,
+    project and head convs, the depthwise convs, squeeze-excite and the
+    classifier."""
+    from wsunet_tpu_torch.models.b0 import _MBConv, _SqueezeExcite
 
     macs = {"stem": 0, "1x1": 0, "depthwise": 0, "se": 0, "classifier": 0}
     se = {id(m) for blk in model.modules() if isinstance(blk, _SqueezeExcite)
@@ -786,12 +800,15 @@ def b0_macs(model, size: int) -> dict:
         if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
             hooks.append(mod.register_forward_hook(count))
     dev = next(model.parameters()).device
+    takes_b3 = _MBConv.takes_b3
+    _MBConv.takes_b3 = lambda self, h: False
     try:
         with torch.no_grad():
             model(torch.zeros(1, model.conv_stem.in_channels -
                               int(model.parity_features), size, size,
                               device=dev))
     finally:
+        _MBConv.takes_b3 = takes_b3
         for h in hooks:
             h.remove()
     return macs
@@ -3601,6 +3618,135 @@ def holdout_analyses_path(smi_line: str) -> dict:
     return out
 
 
+# ---- phase 18: kernel B3 (ops.fused_mbconv_dw)
+
+B3_BATCH = 32
+
+
+def b3_library(x, w, dw, ex, stride):
+    """The library yardstick of B3: the composition the B0 module ran
+    before B3, as PyTorch's own calls (cuDNN's batch norm, SiLU, the SAME
+    pad, conv_depthwise2d, the mean)."""
+    from wsunet_tpu_torch.models.b0 import _same_pad
+
+    def bn(h, n):
+        return F.batch_norm(h, n.mean, n.var, n.weight, n.bias, False, 0.0,
+                            n.eps)
+
+    if ex is not None:
+        x = F.silu(bn(x, ex))
+    k = w.shape[-1]
+    x = _same_pad(x, k, stride) if stride != 1 else F.pad(x, [k // 2] * 4)
+    y = F.silu(bn(F.conv2d(x, w, stride=stride, groups=x.shape[1]), dw))
+    return y, y.mean(dim=(2, 3))
+
+
+def b3_path(smi_line: str) -> dict:
+    """Phase 18: B3 at each depthwise stage of B0 without stem stride,
+    512x512, B=32 (see the module docstring)."""
+    from wsunet_tpu_torch.models.b0 import dw_shapes
+    from wsunet_tpu_torch.ops import fused_mbconv_dw as b3
+    from wsunet_tpu_torch.ops.fused_mbconv_dw import BatchNormStats
+
+    def norm(C, g):
+        return BatchNormStats(
+            torch.rand(C, device="cuda", generator=g) + 0.5,
+            torch.randn(C, device="cuda", generator=g),
+            torch.randn(C, device="cuda", generator=g),
+            torch.rand(C, device="cuda", generator=g) * 1.5 + 0.5, 1e-3)
+
+    rows, max_y, max_s = [], 0.0, 0.0
+    b3.reset_launches()
+    with torch.no_grad():
+        for i, (C, H, k, stride, pro) in enumerate(
+                dw_shapes(512, no_stem_stride=True, quadratic_stem=True)):
+            g = torch.Generator(device="cuda").manual_seed(180 + i)
+            x = 2.0 * torch.randn((B3_BATCH, C, H, H), device="cuda",
+                                  generator=g)
+            w = torch.randn((C, 1, k, k), device="cuda", generator=g) / k
+            dw, ex = norm(C, g), (norm(C, g) if pro else None)
+            y, s = b3.mbconv_dw(x, w, dw, ex, stride)
+            again = b3.mbconv_dw(x, w, dw, ex, stride)
+            want_y, want_s = b3.mbconv_dw_plain(x, w, dw, ex, stride)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again[0]) and torch.equal(s, again[1]),
+                  f"B3 block {i}: two calls differ")
+            err_y = float((y - want_y).abs().max())
+            err_s = float(((s - want_s).abs() /
+                           want_y.abs().sum(dim=(2, 3))).max())
+            check(bool(((y - want_y).abs() <=
+                        1e-5 * want_y.abs() + 1e-5).all()),
+                  f"B3 block {i}: y max |err| {err_y}")
+            check(err_s <= 6.2e-5, f"B3 block {i}: s err {err_s} of sum|y|")
+            gy = graph_output(
+                lambda t: b3.mbconv_dw(t, w, dw, ex, stride)[0], x)
+            check(torch.equal(gy, y), f"B3 block {i}: graph replay differs")
+            del again, want_y, want_s, gy
+            max_y, max_s = max(max_y, err_y), max(max_s, err_s)
+            cost = b3.mbconv_dw_cost(B3_BATCH, C, H, H, k, stride, pro)
+            row = {"block": i, "C": C, "H": H, "k": k, "stride": stride,
+                   "prologue": pro, "plan": list(b3._plan(
+                       B3_BATCH, C, H, H, k, stride)),
+                   "bound_ms": 1e3 * cost["bytes"] / HBM_BYTES_PER_S}
+            for key, fn in (
+                    ("ms", lambda t: b3.mbconv_dw(t, w, dw, ex, stride)),
+                    ("plain_ms",
+                     lambda t: b3.mbconv_dw_plain(t, w, dw, ex, stride)),
+                    ("library_ms",
+                     lambda t: b3_library(t, w, dw, ex, stride))):
+                row[key] = graph_ms(fn, [x], reps=5, iters=10)
+            row["roofline"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            print(f"B3 block {i:2d} C={C:4d} {H}^2 k={k} s={stride} "
+                  f"prologue={int(pro)} plan={row['plan']}: "
+                  f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+                  f"{100 * row['roofline']:.1f}%), plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}",
+                  flush=True)
+            del x, y, s
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"phase 18 ({smi_line}): B3 over the 16 blocks at B={B3_BATCH}, "
+          f"512^2: {total['ms']:.3f} ms (bound {total['bound_ms']:.3f}: "
+          f"{100 * total['bound_ms'] / total['ms']:.1f}% of the roofline); "
+          f"plain {total['plain_ms']:.3f} ms; library "
+          f"{total['library_ms']:.3f} ms; max |err| y {max_y:.3e}, s "
+          f"{max_s:.3e} of sum|y|; {b3.launches} launches outside graphs")
+    return {"rows": rows, "total": total, "max_err_y": max_y,
+            "max_err_s": max_s}
+
+
+def b3_only() -> int:
+    """``--b3``: the device line, the kernel build with ptxas' report of
+    B3, and phase 18."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from wsunet_tpu_torch._device import disable_tf32
+    from wsunet_tpu_torch.ops import _cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}; {line}")
+    disable_tf32()
+    t = time.perf_counter()
+    _cuda_build.load_all(_cuda_build.SOURCES)
+    print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    for ptx in ptxas_lines(_cuda_build.build_info("mbconv_dw")["log"]):
+        print("  ptxas: " + ptx)
+    out = b3_path(line)
+    print(json.dumps({"b3": out["total"], "max_err_y": out["max_err_y"],
+                      "max_err_s": out["max_err_s"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4173,6 +4319,10 @@ def main() -> int:
     hold = holdout_analyses_path(smi.stdout.strip().splitlines()[0])
     t = phase(17, "the holdout tables and the analyses from PNG files", t)
 
+    # ---- 18. kernel B3
+    b3_out = b3_path(smi.stdout.strip().splitlines()[0])
+    t = phase(18, "kernel B3", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -4214,6 +4364,13 @@ def main() -> int:
         "max_abs_err": max(*b1_err_max.values(), pngs["b1_max_err"],
                            hold["b1_max_err"]),
         **b1_entry,
+    }, {
+        "name": "mbconv_dw",
+        "route": "cuda",
+        "source": "wsunet_tpu_torch/csrc/mbconv_dw.cu",
+        "replaces": None,
+        "max_abs_err": b3_out["max_err_y"],
+        **b3_out["total"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -4222,6 +4379,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--b3"]:
+        sys.exit(b3_only())
     if sys.argv[1:2] == ["--cli-checked"]:
         sys.exit(cli_checked(pathlib.Path(sys.argv[2]), sys.argv[3:]))
     if sys.argv[1:2] == ["--holdout-checked"]:

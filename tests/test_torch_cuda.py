@@ -373,6 +373,130 @@ def test_b0_card_matches_cpu_at_512(cuda, index, dtype):
             np.abs(got - want).max() <= 1.25 * bound
 
 
+def _b3_inputs(C, H, k, prologue, B, device, seed):
+    """Seeded raw expand-conv output x (large enough that the expand norm's
+    shift matters), taps, and both norms' statistics on the card."""
+    from wsunet_tpu_torch.ops.fused_mbconv_dw import BatchNormStats
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def norm():
+        return BatchNormStats(
+            torch.rand(C, device=device, generator=g) + 0.5,
+            torch.randn(C, device=device, generator=g),
+            torch.randn(C, device=device, generator=g),
+            torch.rand(C, device=device, generator=g) * 1.5 + 0.5, 1e-3)
+
+    x = 2.0 * torch.randn((B, C, H, H), device=device, generator=g)
+    w = torch.randn((C, 1, k, k), device=device, generator=g) / k
+    return x, w, norm(), norm() if prologue else None
+
+
+def _b3_within_tolerance(y, s, want_y, want_s):
+    """B3 against its plain version on the card.  y: rtol 1e-5, atol 1e-5
+    (sums of up to 25 products in another order, the norms' scale and
+    shift fused into FMAs: a few ulps of values of order 1).  s: 6.2e-5 of
+    the plane's sum of |y| (a thread sums up to 1,024 outputs one after
+    another, 1,024 * 2^-24 = 6.1e-5 at worst, before a fixed tree)."""
+    y_ok = bool(((y - want_y).abs() <= 1e-5 * want_y.abs() + 1e-5).all())
+    s_ok = bool(((s - want_s).abs() <=
+                 6.2e-5 * want_y.abs().sum(dim=(2, 3)) + 1e-5).all())
+    return y_ok and s_ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(16))
+def test_b3_matches_plain_at_each_block(cuda, index):
+    """The 16 depthwise stages of B0 without stem stride from a 512^2
+    input, B=2: one launch a call, within tolerance of the plain
+    version, y and s."""
+    from wsunet_tpu_torch.models.b0 import dw_shapes
+    from wsunet_tpu_torch.ops import fused_mbconv_dw
+
+    C, H, k, stride, prologue = dw_shapes(512, True, True)[index]
+    x, w, dw, ex = _b3_inputs(C, H, k, prologue, 2, cuda, seed=index)
+    fused_mbconv_dw.reset_launches()
+    with torch.no_grad():
+        y, s = fused_mbconv_dw.mbconv_dw(x, w, dw, ex, stride)
+    assert fused_mbconv_dw.launches == 1
+    want_y, want_s = fused_mbconv_dw.mbconv_dw_plain(x, w, dw, ex, stride)
+    assert y.shape == want_y.shape and s.shape == want_s.shape
+    assert _b3_within_tolerance(y, s, want_y, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # odd sizes (4-byte copies and stores; SAME pads 1 before at stride 2),
+    # a plane split into bands of a cluster, tiny planes; blocks of 2 and 4
+    # planes, the last block with fewer (B=3: 3,303 and 4,503 planes)
+    (24, 37, 3, 2, True), (24, 37, 5, 2, True), (16, 33, 5, 1, False),
+    (8, 130, 3, 1, True), (40, 6, 5, 2, True), (32, 1, 3, 1, True),
+    (1101, 7, 3, 2, True), (1101, 9, 5, 1, True), (1501, 5, 5, 1, True),
+    (1501, 8, 3, 1, False)])
+def test_b3_matches_plain_at_edge_shapes(cuda, shape):
+    from wsunet_tpu_torch.ops import fused_mbconv_dw
+
+    C, H, k, stride, prologue = shape
+    x, w, dw, ex = _b3_inputs(C, H, k, prologue, 3, cuda, seed=H)
+    assert fused_mbconv_dw._plan(3, C, H, H, k, stride)[2] == \
+        (4 if C == 1501 else 2 if C == 1101 else 1)
+    with torch.no_grad():
+        y, s = fused_mbconv_dw.mbconv_dw(x, w, dw, ex, stride)
+    want_y, want_s = fused_mbconv_dw.mbconv_dw_plain(x, w, dw, ex, stride)
+    assert _b3_within_tolerance(y, s, want_y, want_s)
+
+
+@pytest.mark.cuda
+def test_b3_is_deterministic_and_graph_safe(cuda):
+    """Two launches on one input, and a CUDA-graph replay, are bitwise
+    equal, the sums included (the 512^2 stage-0 planes are summed across
+    a cluster of bands)."""
+    from wsunet_tpu_torch.ops import fused_mbconv_dw
+
+    for C, H, k, stride, prologue in [(40, 512, 3, 1, False),
+                                      (144, 256, 5, 2, True)]:
+        x, w, dw, ex = _b3_inputs(C, H, k, prologue, 2, cuda, seed=C)
+        with torch.no_grad():
+            y, s = fused_mbconv_dw.mbconv_dw(x, w, dw, ex, stride)
+            y2, s2 = fused_mbconv_dw.mbconv_dw(x, w, dw, ex, stride)
+            assert torch.equal(y, y2) and torch.equal(s, s2)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fused_mbconv_dw.mbconv_dw(x, w, dw, ex, stride)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                gy, gs = fused_mbconv_dw.mbconv_dw(x, w, dw, ex, stride)
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(gy, y) and torch.equal(gs, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, want", [
+    ("eval", 16), ("train", 0), ("group", 0), ("bf16", 0)])
+def test_b0_forward_launches_b3(cuda, mode, want):
+    """An eval forward in f32 with batch norm launches B3 once a block;
+    training mode, group norm and bf16 take the plain composition."""
+    from wsunet_tpu_torch.models import get_b0
+    from wsunet_tpu_torch.ops import fused_mbconv_dw
+
+    model = get_b0(in_channels=2, no_stem_stride=True, quadratic_stem=True,
+                   drop_rate=0.0, norm="group" if mode == "group" else "batch",
+                   compute_dtype=torch.bfloat16 if mode == "bf16"
+                   else torch.float32).to(cuda)
+    model.train(mode == "train")
+    x = torch.randn((2, 2, 64, 64), device=cuda)
+    fused_mbconv_dw.reset_launches()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert fused_mbconv_dw.launches == want
+
+
 @pytest.mark.cuda
 def test_ols_on_card_matches_golden(cuda):
     """OLS fitted on the card (exact float64 normal equations) against

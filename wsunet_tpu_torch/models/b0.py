@@ -24,6 +24,12 @@ strided convs (the stem unless ``no_stem_stride``, and the depthwise conv
 of the first block of stages 1, 2, 3 and 5) pad explicitly with
 ``_same_pad``; the stride-1 convs pad k // 2 on each side, which SAME is.
 
+In eval mode with batch norm, an f32 forward on the card runs the middle
+of each MBConv block (the expand norm and SiLU, the SAME-padded depthwise
+conv, its norm and SiLU, the squeeze-excite mean) as one launch of kernel
+B3 (``ops.fused_mbconv_dw``; ``_MBConv.takes_b3``); training mode, group
+norm, bf16 and the CPU run the modules' own composition.
+
 Parameters stay f32; ``compute_dtype`` (f32, or bf16) is the type the
 convolutions and activations run in, the norms compute in f32, and the
 classifier runs in f32 as in JAX.  Submodules carry the Flax names
@@ -57,6 +63,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import disable_tf32
+from ..ops import fused_mbconv_dw
+from ..utils import profiling
 from .initializers import lecun_normal
 
 # (expand_ratio, channels, repeats, stride, kernel)
@@ -196,16 +204,32 @@ class _SqueezeExcite(nn.Module):
         self.reduce = _Conv(channels, reduced, 1, bias=True)
         self.expand = _Conv(reduced, channels, 1, bias=True)
 
-    def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+    def forward(self, x, s=None):
+        """``s``: the mean of ``x`` over each plane, [B, C, 1, 1], where
+        the caller has it (kernel B3's sums); else it is taken here."""
+        if s is None:
+            s = x.mean(dim=(2, 3), keepdim=True)
         s = self.expand(F.silu(self.reduce(s)))
         return x * torch.sigmoid(s)
+
+
+def _stats(bn: FlaxBatchNorm, dtype: torch.dtype):
+    return fused_mbconv_dw.BatchNormStats(
+        bn.weight.to(dtype), bn.bias.to(dtype), bn.running_mean.to(dtype),
+        bn.running_var.to(dtype), bn.eps)
 
 
 class _MBConv(nn.Module):
     """Expand 1x1 (unless expand_ratio is 1), depthwise kxk, squeeze-excite
     (width from the block's input), project 1x1; the residual only when
-    stride is 1 and the width is kept."""
+    stride is 1 and the width is kept.
+
+    Where ``takes_b3`` holds, the middle of the block (the expand norm and
+    SiLU, the SAME-padded depthwise conv, its norm and SiLU, and the
+    squeeze-excite mean) runs as one launch of kernel B3
+    (``ops.fused_mbconv_dw``); elsewhere as the modules' own composition.
+    Each forward counts ``b0.dw_kernel.hit`` or ``.miss``
+    (``utils.profiling``)."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: int,
                  stride: int, kernel: int, norm: str = "batch",
@@ -222,12 +246,32 @@ class _MBConv(nn.Module):
         self.project_conv = _Conv(mid, out_ch, 1)
         self.project_bn = _make_norm(norm, out_ch)
 
+    def takes_b3(self, h) -> bool:
+        """Whether the depthwise stage of ``h`` (the expand conv's output)
+        runs through B3: in eval mode (training needs batch statistics),
+        with batch norm, on an f32 CUDA tensor."""
+        return (not self.training and isinstance(self.dw_bn, FlaxBatchNorm)
+                and h.dtype == torch.float32 and h.is_cuda)
+
     def forward(self, x):
         h = x
-        if hasattr(self, "expand_conv"):
-            h = F.silu(self.expand_bn(self.expand_conv(h)))
-        h = F.silu(self.dw_bn(self.dw_conv(h)))
-        h = self.project_bn(self.project_conv(self.se(h)))
+        expand = hasattr(self, "expand_conv")
+        if expand:
+            h = self.expand_conv(h)
+        if self.takes_b3(h):
+            profiling.count("b0.dw_kernel.hit")
+            h, s = fused_mbconv_dw.mbconv_dw(
+                h.contiguous(), self.dw_conv.weight.to(h.dtype),
+                _stats(self.dw_bn, h.dtype),
+                _stats(self.expand_bn, h.dtype) if expand else None,
+                stride=self.dw_conv.stride[0])
+            h = self.se(h, (s / (h.shape[2] * h.shape[3]))[:, :, None, None])
+        else:
+            profiling.count("b0.dw_kernel.miss")
+            if expand:
+                h = F.silu(self.expand_bn(h))
+            h = self.se(F.silu(self.dw_bn(self.dw_conv(h))))
+        h = self.project_bn(self.project_conv(h))
         return h + x if self.residual else h
 
 
@@ -284,6 +328,24 @@ class EfficientNetB0(nn.Module):
         # in the parameters' dtype: f32 as in JAX (f64 for a model moved
         # to float64 as a reference)
         return self.classifier(h.to(self.classifier.weight.dtype))
+
+
+def dw_shapes(side: int, no_stem_stride: bool = False,
+              quadratic_stem: bool = False) -> list:
+    """(C, H, k, stride, prologue) of the depthwise stage of each of the
+    16 MBConv blocks of a forward on a side x side image, in order: the
+    shapes of kernel B3's launches (the stage's input is H x H, C wide;
+    ``prologue``: the block has an expand conv)."""
+    size = side if no_stem_stride else -(-side // 2)
+    width = STEM_WIDTH + (QUAD_PAIRS if quadratic_stem else 0)
+    out = []
+    for t, c, n, s, k in B0_STAGES:
+        for b in range(n):
+            stride = s if b == 0 else 1
+            out.append((width * t, size, k, stride, t != 1))
+            size = -(-size // stride)
+            width = c
+    return out
 
 
 # steganalysis high-pass kernels (the JAX package's _HP_KERNELS): KB

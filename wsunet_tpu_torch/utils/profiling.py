@@ -8,8 +8,8 @@
   is on, a dispatch mode checks the floating outputs of every op, forward
   and backward, and raises ``FloatingPointError`` at the op that made a
   NaN; anomaly detection names the forward op of a backward that did.
-  The kernels B1 and B2 write through ctypes, where no dispatch mode sees
-  them, so their wrappers check their own outputs (``check_output``).
+  The kernels B1, B2 and B3 write through ctypes, where no dispatch mode
+  sees them, so their wrappers check their own outputs (``check_output``).
   Off by default: the default path gets no check and no synchronisation.
   Every CLI command runs under it when ``WSUNET_DEBUG_NANS=1`` is set.
 - ``log_compiles(enable)``: the port compiles only its CUDA kernels (one
