@@ -38,7 +38,10 @@ JAX CLI's default to ``models/`` (``--model-dir`` / ``--unet-model-dir``
 ``weights/b0``; ``scripts/export_torch_weights.py``), ``--device`` picks
 the device (default CUDA; without a card a command exits with one line,
 and ``serve`` has no fallback to the CPU), and ``--fast-conv`` runs the
-U-Net's 3x3 convs through kernel B1 instead of cuDNN.  ``ws-eval --models
+U-Net's 3x3 convs through kernel B1 instead of cuDNN.  ``train-unet
+--network restormer_gray`` trains Restormer as the cover predictor
+(``models.restormer``, float32 only, no ``--fast-conv``), and
+``unet-eval --model-dir`` of such a run evaluates it.  ``ws-eval --models
 OLS`` fits the OLS predictor on the covers, in the colour layouts for two
 or three ``--channels``.  ``simulate --method LSBr`` draws from torch
 generators seeded per image as the JAX CLI seeds its keys, so its stego
@@ -163,6 +166,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=pathlib.Path("models/unet"))
     p.add_argument("--config", type=json.loads, default={},
                    help='JSON config overrides, e.g. \'{"alpha":0.4}\'')
+    p.add_argument("--network", default=None,
+                   help="the predictor: unet_<n> (the config's default "
+                        "unet_2) or restormer_gray (float32, no --fast-conv)")
 
     p = sub.add_parser("train-b0", help="train the B0 detector")
     _common(p)
@@ -336,6 +342,8 @@ def _run(args):
         _cmd_roc(args)
     elif cmd == "train-unet":
         from .train.train_unet import train
+        if args.network:
+            args.config = {**args.config, "network": args.network}
         exp = train(args.config, data_path=args.data,
                     output_dir=args.output_dir, device=args.device)
         if _rank0():

@@ -5,9 +5,14 @@ The JAX trainer's surface, on one device:
 - the experiment directory ``<output_dir>/<method or "dropout">/<stamp>-
   <platform>-<run name>`` with ``config.json``, ``model/{latest,best}``
   (``train.checkpoint``; torch state), ``best.npz`` (the best parameters in
-  the Flax layout that ``ws.unet_eval.load_pretrained_unet`` reads) and
-  ``log/scalars.csv`` (TensorBoard event files too where tensorboard
-  imports);
+  the layout of the network's runs that ``ws.unet_eval.
+  load_pretrained_unet`` reads: Flax's for a U-Net, the state dict for a
+  Restormer) and ``log/scalars.csv`` (TensorBoard event files too where
+  tensorboard imports);
+- ``network`` is ``unet_<n>`` or ``restormer_gray``, built, initialised
+  by its own seeded initialiser and saved as ``models.predictor`` gives
+  them; the Restormer refuses ``drop_rate``, ``disable_center`` and a
+  ``compute_dtype`` other than float32;
 - the sample pipeline of a step runs on the device: random crop, flips
   and rot90, a per-image cover/stego draw, and LSBr or HILLr embedding;
   the host ships decoded cover batches only;
@@ -56,8 +61,7 @@ from ..data.simulate import hillr_simulate, lsbr_draws, lsbr_embed
 from ..data.transforms import crop, flip, rot90
 from ..detect.metrics import LossMeter, MAEMeter, ProgressMeter, WSMeter
 from ..io.imread import imread_gray_u8
-from ..models import (flax_params_from_unet_state_dict, get_model, init_unet,
-                      unet_state_dict_from_flax)
+from ..models import predictor
 from ..parallel import get_mesh, replicate, shard_batch
 from ..utils import setup_logger
 from ..utils.errors import UserError
@@ -287,14 +291,15 @@ def make_optimizer(cfg: dict, steps_per_epoch: int, params):
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
 
 
-def _resume(model, resume_dir: pathlib.Path):
+def _resume(model, resume_dir: pathlib.Path, network: str):
     """Load the parameters of ``resume_dir``'s ``model/best`` (a run the
-    port trained) or, without one, of its ``best.npz`` (a JAX run
-    exported with ``scripts/export_torch_weights.py``)."""
+    port trained) or, without one, of its ``best.npz`` in ``network``'s
+    layout (a JAX U-Net run exported with
+    ``scripts/export_torch_weights.py``)."""
     if (resume_dir / "model").exists():
         state = load_checkpoint(resume_dir, "best")["params"]
     elif (resume_dir / PARAMS_FILE).exists():
-        state = unet_state_dict_from_flax(load_params(resume_dir)[0])
+        state = predictor(network).from_params(load_params(resume_dir)[0])
     else:
         raise FileNotFoundError(
             f"no model/best or {PARAMS_FILE} to resume from at {resume_dir}")
@@ -328,14 +333,15 @@ def train_names(config: dict, data_path: pathlib.Path,
               "stego_method": stego_method or "dropout"})
     writer = rank_writer(mesh, exp_dir / "log")
 
-    model = init_unet(get_model(
+    net = predictor(cfg["network"])
+    model = net.init(net.build(
         cfg["network"], drop_rate=cfg["drop_rate"],
         disable_center=cfg["disable_center"],
         compute_dtype=getattr(torch, cfg["compute_dtype"])), cfg["seed"] or 0)
     if cfg.get("resume"):
         resume_dir = (pathlib.Path(output_dir) / (stego_method or "dropout")
                       / cfg["resume"])
-        _resume(model, resume_dir)
+        _resume(model, resume_dir, cfg["network"])
         log.info(f"resumed params from {resume_dir}")
     replicate(mesh, model.to(dev))
     loss_fn = get_loss(
@@ -404,7 +410,7 @@ def train_names(config: dict, data_path: pathlib.Path,
             on_rank0(mesh, save_checkpoint, exp_dir, state, is_best=is_best)
             if is_best:
                 on_rank0(mesh, save_params, exp_dir,
-                         flax_params_from_unet_state_dict(model.state_dict()))
+                         net.to_params(model.state_dict()))
                 patience = cfg["patience"]
                 best_val_loss = val_loss
             else:

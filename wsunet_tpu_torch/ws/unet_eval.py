@@ -7,7 +7,9 @@
   unweighted, unclipped U-Net WS variant (the step of ``_predict_frame``).
 - ``load_pretrained_unet`` / ``get_unet_estimator``: a trained run from its
   ``config.json`` and ``best.npz`` (``train.checkpoint``), read with numpy
-  and json alone.
+  and json alone; the network its config names, a U-Net or a Restormer
+  (``models.restormer``), each in its own ``best.npz`` layout
+  (``models.predictor``).
 - ``predict_sweep``: (beta_hat, l1) over image names, NaN where a decode
   failed (numpy and torch only); rank-sharded under a process group
   (``parallel``), each rank running the model, on B1 with
@@ -25,7 +27,7 @@ import torch
 from .._device import resolve_device, to_model_device
 from ..data.transforms import center_crop
 from ..io.imread import imread_gray_u8
-from ..models import get_model, unet_state_dict_from_flax
+from ..models import predictor
 from ..ops.ws import ws_estimate_unet
 from ..train.checkpoint import load_config, load_params
 from ..utils.errors import UserError
@@ -59,15 +61,16 @@ def load_pretrained_unet(model_path: pathlib.Path, model_name: str,
     its config names, one input and one output channel, no dropout, its
     ``best.npz`` weights, in eval mode on ``device`` (None = CUDA).
     ``fast_conv=False`` pads and convolves with cuDNN; ``True`` runs every
-    3x3 conv through kernel B1."""
+    3x3 conv of a U-Net through kernel B1 (a Restormer refuses it)."""
     dev = resolve_device(device)
     exp_dir = pathlib.Path(model_path) / model_name
     if not (exp_dir / "config.json").exists():
         raise UserError(f"no model run at {exp_dir} (config.json missing)")
     config = load_config(exp_dir)
-    model = get_model(config["network"], in_channels=1, out_channels=1,
+    net = predictor(config["network"])
+    model = net.build(config["network"], in_channels=1, out_channels=1,
                       compute_dtype=compute_dtype, fast_conv=fast_conv)
-    model.load_state_dict(unet_state_dict_from_flax(load_params(exp_dir)[0]))
+    model.load_state_dict(net.from_params(load_params(exp_dir)[0]))
     return model.to(dev).eval(), config
 
 
