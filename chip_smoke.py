@@ -231,6 +231,18 @@ kernel against its plain PyTorch version:
    and mean: the composition the model ran before B3, which the port
    never calls as one).  ``python3 chip_smoke.py --b3`` builds the kernels
    and runs phase 18 alone.
+19. kernel B4 (the middle of Restormer's gated FFN in one pass, CUDA C++)
+   at the 5 shapes of the 44 launches of a ``restormer_gray`` forward at
+   512x512, B=32: every launch held to its plain version, two calls and a
+   CUDA-graph replay bitwise equal; device ms by CUDA events
+   (``cuda_ms``) beside its bound (bytes over the card's bandwidth), the
+   plain version's ms and the library yardstick's (the module's grouped
+   conv, ``chunk``, exact GELU and the product: what the model ran before
+   B4, which the port never calls on the card in eval mode), and the
+   forward's sum over its 44 launches; then one eval ``restormer_gray``
+   forward at 512x512 and one at 500x500, B=1, each of 44 B4 launches.
+   ``python3 chip_smoke.py --b4`` builds the kernels and runs phase 19
+   alone, with ptxas' registers and spills of B4.
 
 Every phase runs unguarded: a failure raises and the exit code is not 0.
 The line before the last is the kernels' JSON record; the last line is
@@ -333,7 +345,7 @@ def ptxas_lines(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?"
                       r"(wgmma_kernel|direct_kernel|fma_kernel|ws_kernel|"
-                      r"recip_kernel|mbconv_dw_kernel)"
+                      r"recip_kernel|mbconv_dw_kernel|gdfn_gate_kernel)"
                       r"(I\w+?EE)?", line)
         if m:
             name = m.group(1) + names.get(m.group(2) or "", "")
@@ -3747,6 +3759,143 @@ def b3_only() -> int:
     return 0
 
 
+# ---- phase 19: kernel B4 (ops.fused_gdfn_gate)
+
+B4_BATCH = 32
+# B4 against its plain version: each output may sum its 9 products a half
+# in another order (a few ulps of values of order 1 at these inputs), then
+# the same erff and product (0.0 seen on the H100); a tanh GELU would
+# differ by up to 4.7e-4
+B4_RTOL, B4_ATOL = 1e-5, 2e-5
+
+
+def b4_library(dwconv, u):
+    """The library yardstick of B4: the GDFN's middle as the model ran it
+    before B4 (the module's grouped conv, ``chunk``, exact GELU and the
+    product)."""
+    x1, x2 = dwconv(u).chunk(2, dim=1)
+    return F.gelu(x1) * x2
+
+
+def b4_path(smi_line: str) -> dict:
+    """Phase 19: B4 at the shapes of a Restormer forward, 512x512, B=32
+    (see the module docstring)."""
+    from wsunet_tpu_torch.models import get_model
+    from wsunet_tpu_torch.models.restormer import gate_shapes, init_restormer
+    from wsunet_tpu_torch.ops import fused_gdfn_gate as b4
+
+    torch.cuda.empty_cache()
+    shapes = gate_shapes(512)
+    rows, max_err = [], 0.0
+    b4.reset_launches()
+    with torch.no_grad():
+        for i, (h, H) in enumerate(dict.fromkeys(shapes)):
+            n = shapes.count((h, H))
+            g = torch.Generator(device="cuda").manual_seed(190 + i)
+            u = torch.randn((B4_BATCH, 2 * h, H, H), device="cuda",
+                            generator=g)
+            dwconv = torch.nn.Conv2d(2 * h, 2 * h, 3, padding=1,
+                                     groups=2 * h, bias=False).cuda()
+            dwconv.weight.copy_(torch.randn(dwconv.weight.shape,
+                                            device="cuda", generator=g) / 3)
+            w = dwconv.weight
+            y = b4.gdfn_gate(u, w)
+            again = b4.gdfn_gate(u, w)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again), f"B4 {h}x{H}^2: two calls differ")
+            del again
+            err = 0.0
+            for a in range(0, B4_BATCH, 4):
+                want = b4.gdfn_gate_plain(u[a:a + 4], w)
+                diff = (y[a:a + 4] - want).abs()
+                err = max(err, float(diff.max()))
+                check(bool((diff <= B4_RTOL * want.abs() + B4_ATOL).all()),
+                      f"B4 {h}x{H}^2: max |err| {err}")
+            del want, diff
+            gy = graph_output(lambda t: b4.gdfn_gate(t, w), u)
+            check(torch.equal(gy, y), f"B4 {h}x{H}^2: graph replay differs")
+            del gy, y
+            max_err = max(max_err, err)
+            cost = b4.gdfn_gate_cost(B4_BATCH, h, H, H)
+            row = {"h": h, "H": H, "launches_a_forward": n,
+                   "plan": list(b4._plan(H)),
+                   "bound_ms": 1e3 * cost["bytes"] / HBM_BYTES_PER_S}
+            for key, fn in (
+                    ("ms", lambda t: b4.gdfn_gate(t, w)),
+                    ("plain_ms", lambda t: b4.gdfn_gate_plain(t, w)),
+                    ("library_ms", lambda t: b4_library(dwconv, t))):
+                row[key] = cuda_ms(fn, [u])
+            row["roofline"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            print(f"B4 h={h:4d} {H}^2 x{n:2d} plan={row['plan']}: "
+                  f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+                  f"{100 * row['roofline']:.1f}%), plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}; "
+                  f"max |err| {err:.3e}", flush=True)
+            del u, dwconv, w
+    total = {key: sum(r[key] * r["launches_a_forward"] for r in rows)
+             for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"phase 19 ({smi_line}): B4 over the {len(shapes)} launches of a "
+          f"forward at B={B4_BATCH}, 512^2: {total['ms']:.3f} ms (bound "
+          f"{total['bound_ms']:.3f}: "
+          f"{100 * total['bound_ms'] / total['ms']:.1f}% of the roofline); "
+          f"plain {total['plain_ms']:.3f} ms; library "
+          f"{total['library_ms']:.3f} ms; max |err| {max_err:.3e}; "
+          f"{b4.launches} launches outside graphs")
+    # one eval forward of the model at the cell's side and at 500^2
+    # (padded to 504^2: level 3's width 126 and the latent's 63 are not
+    # multiples of 4), B=1: every one of its gated FFNs takes B4
+    model = init_restormer(get_model("restormer_gray"), seed=19).cuda().eval()
+    forward_launches = {}
+    with torch.no_grad():
+        for side in (512, 500):
+            x = torch.rand((1, 1, side, side), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(side))
+            b4.reset_launches()
+            y = model(x)
+            torch.cuda.synchronize()
+            forward_launches[side] = b4.launches
+            check(b4.launches == len(shapes) and bool(y.isfinite().all()),
+                  f"B4: an eval forward at {side}^2 took {b4.launches} "
+                  f"launches, not {len(shapes)}")
+    del model, x, y
+    print(f"phase 19: an eval restormer_gray forward, B=1: "
+          f"{forward_launches} B4 launches (side: launches)")
+    return {"rows": rows, "total": total, "max_err": max_err,
+            "forward_launches": forward_launches[512]}
+
+
+def b4_only() -> int:
+    """``--b4``: the device line, the kernel build with ptxas' report of
+    B4, and phase 19."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from wsunet_tpu_torch._device import disable_tf32
+    from wsunet_tpu_torch.ops import _cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}; {line}")
+    disable_tf32()
+    t = time.perf_counter()
+    _cuda_build.load_all(_cuda_build.SOURCES)
+    print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    for ptx in ptxas_lines(_cuda_build.build_info("gdfn_gate")["log"]):
+        print("  ptxas: " + ptx)
+    out = b4_path(line)
+    print(json.dumps({"b4": out["total"], "max_err": out["max_err"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4323,6 +4472,10 @@ def main() -> int:
     b3_out = b3_path(smi.stdout.strip().splitlines()[0])
     t = phase(18, "kernel B3", t)
 
+    # ---- 19. kernel B4
+    b4_out = b4_path(smi.stdout.strip().splitlines()[0])
+    t = phase(19, "kernel B4", t)
+
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "ws_attack_fused",
@@ -4371,6 +4524,14 @@ def main() -> int:
         "replaces": None,
         "max_abs_err": b3_out["max_err_y"],
         **b3_out["total"],
+    }, {
+        "name": "gdfn_gate",
+        "route": "cuda",
+        "source": "wsunet_tpu_torch/csrc/gdfn_gate.cu",
+        "replaces": None,
+        "max_abs_err": b4_out["max_err"],
+        "launches_a_forward": b4_out["forward_launches"],
+        **b4_out["total"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -4381,6 +4542,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--b3"]:
         sys.exit(b3_only())
+    if sys.argv[1:2] == ["--b4"]:
+        sys.exit(b4_only())
     if sys.argv[1:2] == ["--cli-checked"]:
         sys.exit(cli_checked(pathlib.Path(sys.argv[2]), sys.argv[3:]))
     if sys.argv[1:2] == ["--holdout-checked"]:

@@ -998,8 +998,8 @@ def test_restormer_matches_the_reference_at_published_widths(cuda):
     at 512x512 on the card: its output against the plain reference's in
     full float32 (``port_bench/reference/restormer.py``) within the CPU
     test's 1e-5 (0.0 seen on the H100: both run the same cuDNN and cuBLAS
-    calls), and (beta_hat, l1) of the sweep's step within the benchmark
-    cell's limits."""
+    calls, and B4's outputs equal the library's), and (beta_hat, l1) of
+    the sweep's step within the benchmark cell's limits."""
     import json
     import sys
 
@@ -1031,3 +1031,157 @@ def test_restormer_matches_the_reference_at_published_widths(cuda):
     assert np.abs(beta.double().cpu().numpy() - rb).max() <= \
         limits["beta_gap"]
     assert np.abs(l1.double().cpu().numpy() - rl).max() <= limits["l1_gap"]
+
+
+def _b4_inputs(h, H, W, B, device, seed):
+    """Seeded ``project_in`` output u and taps w (scaled so that each
+    half's conv is of order 1) on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.randn((B, 2 * h, H, W), device=device, generator=g)
+    w = torch.randn((2 * h, 1, 3, 3), device=device, generator=g) / 3
+    return u, w
+
+
+def _b4_within_tolerance(y, want):
+    """B4 against its plain version on the card: rtol 1e-5, atol 2e-5
+    (each output may sum its 9 products a half in another order, a few
+    ulps of values of order 1, then the same erff and product; 0.0 seen
+    on the H100, whose library kernels sum them in B4's order; a tanh
+    GELU would differ by up to 4.7e-4)."""
+    return y.shape == want.shape and \
+        bool(((y - want).abs() <= 1e-5 * want.abs() + 2e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, H, B", [
+    # the four levels' (h, plane) of a restormer_gray forward at 512^2
+    # (decoder 1 and the refinement: h 255 at 512^2), B=2; one at B=32
+    (127, 512, 2), (255, 256, 2), (510, 128, 2), (1021, 64, 2),
+    (1021, 64, 32)])
+def test_b4_matches_plain_at_each_level(cuda, h, H, B):
+    from wsunet_tpu_torch.ops import fused_gdfn_gate
+
+    u, w = _b4_inputs(h, H, H, B, cuda, seed=h + B)
+    fused_gdfn_gate.reset_launches()
+    with torch.no_grad():
+        y = fused_gdfn_gate.gdfn_gate(u, w)
+    assert fused_gdfn_gate.launches == 1
+    assert _b4_within_tolerance(y, fused_gdfn_gate.gdfn_gate_plain(u, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, H, W", [
+    # ragged last bands and column tiles (72 x 40: a tile 40 wide, bands
+    # of 48 rows), planes under a tile, widths over one tile of 128
+    (3, 72, 40), (5, 40, 72), (2, 9, 8), (1, 5, 4), (4, 20, 136),
+    (2, 33, 260)])
+def test_b4_matches_plain_at_ragged_shapes(cuda, h, H, W):
+    from wsunet_tpu_torch.ops import fused_gdfn_gate
+
+    u, w = _b4_inputs(h, H, W, 3, cuda, seed=H * W)
+    with torch.no_grad():
+        y = fused_gdfn_gate.gdfn_gate(u, w)
+    assert _b4_within_tolerance(y, fused_gdfn_gate.gdfn_gate_plain(u, w))
+
+
+@pytest.mark.cuda
+def test_b4_is_deterministic_and_graph_safe(cuda):
+    from wsunet_tpu_torch.ops import fused_gdfn_gate
+
+    u, w = _b4_inputs(255, 256, 256, 2, cuda, seed=3)
+    with torch.no_grad():
+        y = fused_gdfn_gate.gdfn_gate(u, w)
+        assert torch.equal(y, fused_gdfn_gate.gdfn_gate(u, w))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_gdfn_gate.gdfn_gate(u, w)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gy = fused_gdfn_gate.gdfn_gate(u, w)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(gy, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, H, W, offset", [
+    # every remainder of 4; 504^2's level 3 (126) and latent (63) at their
+    # widths; a base 4 bytes into its storage
+    (2, 8, 5, 0), (2, 8, 6, 0), (3, 9, 7, 0), (510, 126, 126, 0),
+    (1021, 63, 63, 0), (2, 8, 8, 1)])
+def test_b4_takes_ragged_widths_and_unaligned_bases(cuda, h, H, W, offset):
+    """A width that is not a multiple of 4 or a base that is not 16-byte
+    aligned is copied with zero columns first, and still takes one
+    launch."""
+    from wsunet_tpu_torch.ops import fused_gdfn_gate
+
+    u, w = _b4_inputs(h, H, W, 2, cuda, seed=H * W + offset)
+    if offset:
+        u = torch.cat([u.new_zeros(offset), u.flatten()])[offset:] \
+            .view(u.shape)
+    fused_gdfn_gate.reset_launches()
+    with torch.no_grad():
+        y = fused_gdfn_gate.gdfn_gate(u, w)
+    assert fused_gdfn_gate.launches == 1 and y.is_contiguous()
+    assert _b4_within_tolerance(y, fused_gdfn_gate.gdfn_gate_plain(u, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["transposed", "float64", "odd_channels"])
+def test_b4_rejects_what_the_kernel_does_not_take(cuda, case):
+    """A non-contiguous u, float64 on the card and an odd number of
+    channels raise; nothing falls back."""
+    from wsunet_tpu_torch.ops import fused_gdfn_gate
+
+    u, w = _b4_inputs(2, 8, 8, 1, cuda, seed=1)
+    if case == "transposed":
+        u = u.transpose(2, 3)
+    elif case == "float64":
+        u, w = u.double(), w.double()
+    else:
+        u, w = u[:, :3].contiguous(), w[:3].contiguous()
+    fused_gdfn_gate.reset_launches()
+    with pytest.raises((TypeError, ValueError)), torch.no_grad():
+        fused_gdfn_gate.gdfn_gate(u, w)
+    assert fused_gdfn_gate.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [512, 500])
+def test_restormer_eval_forward_takes_b4(cuda, side):
+    """An eval-mode ``restormer_gray`` forward on the card at 512x512 and
+    at 500x500 (padded to 504: widths 126 and 63, not multiples of 4),
+    B=2, on the benchmark's weights: 44 B4 launches, and (beta_hat, l1)
+    within the benchmark cell's limits of the library path's (training
+    mode, no launch)."""
+    import json
+    import sys
+
+    sys.path.insert(0, str(REPO))
+    from port_bench.drivers.predictor_png_sweep import draw_state
+    from port_bench.harness import images
+    from wsunet_tpu_torch.ops import fused_gdfn_gate
+
+    bench = REPO / "port_bench"
+    limits = json.loads((bench / "limits" /
+                         "restormer-sweep-png.json").read_text())
+    config = json.loads((bench / "configs" /
+                         "restormer_gray.json").read_text())
+    model = get_model("restormer_gray")
+    model.load_state_dict(draw_state(config, 2 ** 31 + 23))
+    model = model.to(cuda)
+    px = np.stack([images.cover(5, i, side) for i in range(2)])
+    got = {}
+    for mode, want in (("eval", 44), ("train", 0)):
+        model.train(mode == "train")
+        fused_gdfn_gate.reset_launches()
+        got[mode] = [t.double().cpu().numpy()
+                     for t in predict_batch(model, px, device=cuda)]
+        assert fused_gdfn_gate.launches == want, mode
+    assert np.abs(got["eval"][0] - got["train"][0]).max() <= \
+        limits["beta_gap"]
+    assert np.abs(got["eval"][1] - got["train"][1]).max() <= \
+        limits["l1_gap"]

@@ -130,8 +130,9 @@ def test_refused_options_name_the_network(options):
 
 def test_spans_and_the_pad_counter():
     """Under a profiler: one ``restormer.forward`` a call, an attention
-    and an FFN span in each block, and ``restormer.padded`` once a padded
-    batch only."""
+    and an FFN span in each block, ``restormer.padded`` once a padded
+    batch only, and on the CPU a ``restormer.gdfn_kernel.miss`` a
+    block."""
     model, _ = _small()
     profiling.clear()
     with torch.profiler.profile(), torch.no_grad():
@@ -144,7 +145,8 @@ def test_spans_and_the_pad_counter():
     assert names.count("restormer.forward") == 2
     assert names.count("restormer.attention") == 2 * blocks
     assert names.count("restormer.ffn") == 2 * blocks
-    assert got["counters"] == {"restormer.padded": 1}
+    assert got["counters"] == {"restormer.padded": 1,
+                               "restormer.gdfn_kernel.miss": 2 * blocks}
 
 
 @pytest.fixture

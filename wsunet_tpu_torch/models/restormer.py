@@ -37,10 +37,15 @@ Submodules carry the published names, so a published state dict loads
 one to one.  ``init_restormer`` fills a model as those modules' own
 initialisers do, from a seeded generator.
 
-Spans (``utils.profiling``, recorded only while a profiler runs):
-``restormer.forward`` around a forward, and in each block
+In eval mode on the card each GDFN's middle runs through kernel B4
+(``FeedForward.takes_b4``, ``ops.fused_gdfn_gate``); training mode and
+the CPU keep the modules' composition.
+
+Spans and counters (``utils.profiling``, recorded only while a profiler
+runs): ``restormer.forward`` around a forward, and in each block
 ``restormer.attention`` (norm, MDTA and its residual add) and
-``restormer.ffn`` (norm, GDFN and its residual add).
+``restormer.ffn`` (norm, GDFN and its residual add);
+``restormer.gdfn_kernel.hit`` / ``.miss``, a GDFN each.
 
 Float32 only, on cuDNN and cuBLAS with TF32 off: ``compute_dtype`` other
 than float32, ``fast_conv`` (B1 pads by reflection, Restormer's 3x3
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import disable_tf32
+from ..ops import fused_gdfn_gate
 from ..utils.errors import UserError
 from ..utils.profiling import count, span
 
@@ -110,7 +116,13 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GDFN: the gated depthwise feed-forward."""
+    """GDFN: the gated depthwise feed-forward.
+
+    Where ``takes_b4`` holds, its middle (the depthwise conv over both
+    halves and ``gelu(x1) * x2``) runs as one launch of kernel B4
+    (``ops.fused_gdfn_gate``); elsewhere as the modules' own composition.
+    Each forward counts ``restormer.gdfn_kernel.hit`` or ``.miss``
+    (``utils.profiling``)."""
 
     def __init__(self, dim: int, expansion: float):
         super().__init__()
@@ -120,8 +132,20 @@ class FeedForward(nn.Module):
                                 groups=hidden * 2, bias=False)
         self.project_out = nn.Conv2d(hidden, dim, 1, bias=False)
 
+    def takes_b4(self, u) -> bool:
+        """Whether the middle of ``u`` (``project_in``'s output) runs
+        through B4: in eval mode, on an f32 CUDA tensor."""
+        return (not self.training and u.dtype == torch.float32
+                and u.is_cuda)
+
     def forward(self, x):
-        x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
+        u = self.project_in(x)
+        if self.takes_b4(u):
+            count("restormer.gdfn_kernel.hit")
+            return self.project_out(fused_gdfn_gate.gdfn_gate(
+                u.contiguous(), self.dwconv.weight))
+        count("restormer.gdfn_kernel.miss")
+        x1, x2 = self.dwconv(u).chunk(2, dim=1)
         return self.project_out(F.gelu(x1) * x2)
 
 
@@ -226,6 +250,21 @@ class Restormer(nn.Module):
                 count("restormer.padded")
                 x = F.pad(x, (0, pad_w, 0, pad_h), mode="reflect")
             return self._body(x)[..., :h, :w].to(in_dtype)
+
+
+def gate_shapes(side: int, name: str = "restormer_gray") -> list:
+    """(h, H) of the gated FFN of each of the blocks of one forward of
+    the configuration ``name`` on a side x side image (side a multiple of
+    8), in launch order: h the hidden width, half of ``dwconv``'s
+    channels, and H = W the side of its planes."""
+    cfg = NETWORKS[name]
+    dim, f, nb = cfg["dim"], cfg["ffn_expansion_factor"], cfg["num_blocks"]
+    out = []
+    for level in (0, 1, 2, 3, 2, 1):   # the encoders, latent, decoders 3, 2
+        out += [(int(dim * 2 ** level * f), side >> level)] * nb[level]
+    # decoder 1 and the refinement keep 2 * dim channels at full size
+    return out + [(int(2 * dim * f), side)] * (
+        nb[0] + cfg["num_refinement_blocks"])
 
 
 @torch.no_grad()

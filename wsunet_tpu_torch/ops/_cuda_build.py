@@ -28,9 +28,10 @@ import time
 from ..utils import profiling
 
 # the kernels' sources: B1 (reflect_conv3x3: variants direct and fma;
-# reflect_conv3x3_wgmma: variant wgmma), B2 (ws_fused) and B3 (mbconv_dw)
+# reflect_conv3x3_wgmma: variant wgmma), B2 (ws_fused), B3 (mbconv_dw)
+# and B4 (gdfn_gate)
 SOURCES = ("reflect_conv3x3", "reflect_conv3x3_wgmma", "ws_fused",
-           "mbconv_dw")
+           "mbconv_dw", "gdfn_gate")
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
